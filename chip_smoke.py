@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path: the 1920x1080, 1 spp, 3-bounce neural frame of
+Drives the port's main paths: the 1920x1080, 1 spp, 3-bounce neural frame of
 the shelled-sphere scene (inner/outer UV-sphere shells of 2,304 triangles
 each, lane grid S=16, entry_pack=2; the trained sphere weights from
-configs/sphere/lane16_step24000.npz and seeded ones). Phases, each failing
-the run:
+configs/sphere/lane16_step24000.npz and seeded ones), the `evaluate` app on
+the knot scene (configs/knot/knot_lane.json: a 65,536-triangle ground-truth
+mesh, shells of 9,216 triangles each, the trained 48k-step weights), and a
+small-shell scene. Phases, each failing the run:
 
   1. build every CUDA kernel of the path from neural_renderer_tpu_torch/csrc
      (one nvcc per source, in parallel);
@@ -18,9 +20,24 @@ the run:
   3. render 480x270 through the kernels and through the twins on the card
      and compare the images (under 2% of pixels off by more than 3, mean
      difference under 1.0);
-  4. render the full-size frame (one warm-up, three timed) with seeded
+  4. render the full-size frame (one warm-up, two timed) with seeded
      weights and every launch counter set to 0 first, check every kernel
-     launched, then time the trained weights the same way.
+     launched, then time the trained weights the same way;
+  5. hold the clustered closest-hit kernel against its twin, bit-exact in
+     t, triangle id and clusters swept, on 131,072-ray slices of the knot's
+     sorted 1080p camera rays (FORWARD_ONLY) and first bounce rays (ANY);
+  6. hold the dense dual-shell sweep kernel against its twin, bit-exact on
+     every row with and without the second forward crossing, on 131,072
+     camera rays against shells of 1,024 triangles each;
+  7. run `evaluate` on the knot at 480x270 with the config's 64 samples and
+     hold it to the JAX package's gate for this scene (PSNR >= 40.2 dB, mean
+     FLIP <= 0.018), then at 1920x1080 with 8 samples in one batch, every
+     launch counter set to 0 first: the closest-hit kernel must launch in
+     the ground-truth pass, the clustered sweep and the network in the
+     neural pass;
+  8. render a procedural small-shell scene at 480x270 through the Renderer,
+     kernels against twins on the card: the two images must be identical,
+     with the dense sweep's counter above 0.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -30,8 +47,10 @@ that line, when there is no CUDA device or the package is missing.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -85,6 +104,8 @@ def main() -> int:
               file=sys.stderr)
         return 3
 
+    from neural_renderer_tpu_torch import config as nr_config
+    from neural_renderer_tpu_torch.cli import evaluate
     from neural_renderer_tpu_torch.models import convert, nbvh
     from neural_renderer_tpu_torch.ops import (cuda_build, lane_grid_kernel,
                                                trace_cluster, trace_pallas,
@@ -94,9 +115,12 @@ def main() -> int:
     from neural_renderer_tpu_torch.render.neural_march import (
         NeuralContext, _camera_fwd2_entry, segment_inputs)
     from neural_renderer_tpu_torch.render.params import RenderParams
+    from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
+                                                           Renderer)
     from neural_renderer_tpu_torch.scene.envmap import EnvironmentTensors
     from neural_renderer_tpu_torch.scene.materials import Material
     from neural_renderer_tpu_torch.scene.mesh import outward_sphere
+    from neural_renderer_tpu_torch.scene.scene import Scene
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -304,7 +328,7 @@ def main() -> int:
     img, accum = run_frames(seeded_ctx, env, make_params, "seeded")
     launches = {"K1": counters[0].launches, "K2": counters[1].launches,
                 "K3": counters[2].launches}
-    log(f"[frame {W}x{H} seeded] launches over 4 frames {launches}")
+    log(f"[frame {W}x{H} seeded] launches over 3 frames {launches}")
     imgf = img.float()
     if img.shape != (H, W, 3) or not torch.isfinite(accum).all() or \
             not (0 < imgf.mean().item() < 255):
@@ -326,8 +350,175 @@ def main() -> int:
             + ", ".join(f"{k} {v[0]:.3f} ({v[1]})"
                         for k, v in totals.items()))
 
+    # ---- 5. K5 on the knot's rays ---------------------------------------
+    knot_cfg_path = os.path.join(ROOT, "configs", "knot", "knot_lane.json")
+    kcfg = nr_config.load_config(knot_cfg_path)
+    t0 = time.perf_counter()
+    kscene = Scene.from_config(kcfg)
+    krend = Renderer(kscene, kcfg.neural_network, device=dev)
+    gt_mesh = krend._mesh_tensors("original_mesh")
+    log(f"[knot] loaded and built in {time.perf_counter() - t0:.2f} s: "
+        f"{gt_mesh.num_triangles} triangles, "
+        f"{gt_mesh.cluster_bounds.shape[1]} clusters")
+    kpos, kyaw, kpitch = nr_config.matrix_to_camera_state(kcfg.camera.matrix)
+    krend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
+        kyaw, kpitch, kcfg.camera.yfov)))
+    krend.resize(W, H)
+    krend.set_bounce_count(kcfg.rendering.bounce_count)
+    kparams = krend._build_params(kpos, 0)
+    kpix, ksamp, _, korig, kdirs = pt.primary_rays(kparams)
+
+    def k5_case(o, d, mode, label):
+        """Sorted rays -> the SLICE-ray window around the middle of those
+        that meet the mesh's box -> kernel against twin."""
+        order = traversal._ray_sort_order(o, d, None)
+        o, d = o[:, order], d[:, order]
+        inside = torch.nonzero(trace_cluster.mesh_exit_t(
+            o, d, gt_mesh.cluster_bounds, None) > 0).squeeze(1)
+        mid_ray = int(inside[inside.numel() // 2])
+        start = max(0, min(o.shape[1] - SLICE, mid_ray - SLICE // 2))
+        start -= start % 512
+        ops = traversal.clustered_trace_operands(
+            gt_mesh, o[:, start:start + SLICE].contiguous(),
+            d[:, start:start + SLICE].contiguous())
+        args, counts = ops[:7], ops[5]
+        swept_k, swept_t = torch.zeros_like(counts), torch.zeros_like(counts)
+        kt, ktri = trace_cluster.trace_clusters_stream(*args, mode, True,
+                                                       swept_k)
+        tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, True,
+                                                     swept_t)
+        torch.cuda.synchronize()
+        err = (kt - tt).abs().max().item()
+        exact = (torch.equal(kt, tt) and torch.equal(ktri, ttri)
+                 and torch.equal(swept_k, swept_t))
+        log(f"[K5 {label}] rays {kt.shape[0]} hits {int((kt < 1e30).sum())} "
+            f"clusters swept {int(swept_k.sum())} of {int(counts.sum())} "
+            f"listed, max|t kernel - twin| {err!r}, t, ids and swept "
+            f"bit-exact {exact}")
+        if not exact:
+            raise AssertionError(f"K5 {label}: kernel != twin")
+        if bool(ops[7].any()):
+            raise AssertionError(f"K5 {label}: a worklist overflowed")
+        ms = time_ms(lambda: trace_cluster.trace_clusters_stream(*args, mode))
+        pms = time_ms(lambda: trace_cluster.trace_clusters_twin(*args, mode),
+                      reps=2)
+        pairs = int(swept_k.sum().item()) * trace_cluster.CLUSTER_SIZE * 512
+        entry = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, ops=pairs * MT_OPS,
+            bytes=nbytes(*args) + 2 * 4 * kt.shape[0], peak_ops=PEAK_FP32,
+            library_ms=None)
+        log(f"[time K5 {label}] kernel {ms:.4f} ms, twin {pms:.4f} ms, "
+            f"bound {pairs * MT_OPS / PEAK_FP32 * 1e3:.4f} ms")
+        return entry
+
+    k5_cam = k5_case(korig, kdirs, traversal.FORWARD_ONLY, "knot camera")
+    khits = pt.trace_primary_gt(gt_mesh, kparams, korig, kdirs)
+    krays = pt.sample_bounce_directions(kparams, kpix, ksamp, khits,
+                                        khits.hit, None)
+    kact = torch.nonzero(khits.hit & (krays.pdf > 0)).squeeze(1)
+    k5_bounce = k5_case(krays.origin[:, kact], krays.direction[:, kact],
+                        traversal.ANY, "knot bounce 1")
+    kernels["K5"] = dict(
+        k5_cam, name="trace_cluster_stream (clustered closest hit)",
+        route="cuda",
+        source="neural_renderer_tpu_torch/csrc/trace_cluster_stream.cu",
+        replaces="neural_renderer_tpu/ops/trace_cluster.py:242",
+        max_abs_err=max(k5_cam["max_abs_err"], k5_bounce["max_abs_err"]))
+    del khits, krays, korig, kdirs
+
+    # ---- 6. K4 on small shells ------------------------------------------
+    small_outer_h = outward_sphere(16, 32, 1.15)
+    small_inner_h = outward_sphere(16, 32, 0.85)
+    so, si = small_outer_h.to_tensors(dev), small_inner_h.to_tensors(dev)
+    ops4 = traversal.dense_sweep_operands(so, si, o_s, d_s)
+    err4 = 0.0
+    for fwd2 in (True, False):
+        ker4 = trace_pallas.sweep_shells_dense(*ops4[:4], fwd2, ops4[4])
+        twin4 = trace_pallas.sweep_shells_dense_twin(*ops4[:4], fwd2, ops4[4])
+        torch.cuda.synchronize()
+        e = (ker4 - twin4).abs().max().item()
+        exact4 = torch.equal(ker4, twin4)
+        log(f"[K4 camera sweep fwd2={fwd2}] rays {SLICE} live blocks "
+            f"{int(ops4[4].sum())} of {ops4[4].numel()} rows "
+            f"{ker4.shape[0]} max|kernel - twin| {e!r} bit-exact {exact4}")
+        if not exact4:
+            raise AssertionError(f"K4 fwd2={fwd2}: kernel != twin")
+        err4 = max(err4, e)
+    ms4 = time_ms(lambda: trace_pallas.sweep_shells_dense(*ops4[:4], True,
+                                                          ops4[4]))
+    pms4 = time_ms(lambda: trace_pallas.sweep_shells_dense_twin(
+        *ops4[:4], True, ops4[4]), reps=3)
+    real_tris = so.num_triangles + si.num_triangles
+    pairs4 = int(ops4[4].sum().item()) * 512 * real_tris
+    kernels["K4"] = dict(
+        name="sweep_dense (dense dual-shell sweep)", route="cuda",
+        source="neural_renderer_tpu_torch/csrc/sweep_dense.cu",
+        replaces="neural_renderer_tpu/ops/trace_pallas.py:95",
+        max_abs_err=err4, ms=ms4, plain_ms=pms4, ops=pairs4 * MT_OPS,
+        bytes=nbytes(ops4[0], ops4[1], ops4[4]) + 9 * 4 * real_tris
+        + 5 * 4 * SLICE, peak_ops=PEAK_FP32, library_ms=None)
+    log(f"[time K4] kernel {ms4:.4f} ms, twin {pms4:.4f} ms, bound "
+        f"{pairs4 * MT_OPS / PEAK_FP32 * 1e3:.4f} ms")
+
+    # ---- 7. evaluate on the knot ----------------------------------------
+    all_counters = {
+        "K1": trace_cluster.sweep_clusters_stream,
+        "K2": lane_grid_kernel.forward_lane, "K3": trace_pallas.trace_dense,
+        "K4": trace_pallas.sweep_shells_dense,
+        "K5": trace_cluster.trace_clusters_stream}
+    out_dir = os.path.join(ROOT, "comparison_output", "smoke_knot")
+    text = run_evaluate(evaluate, [knot_cfg_path, "--width", "480",
+                                   "--height", "270", "--output", out_dir])
+    psnr, flip = parse_metrics(text)
+    log(f"[evaluate knot 480x270 x{kcfg.rendering.total_samples}] PSNR "
+        f"{psnr!r} dB, FLIP {flip!r} (gate >= 40.2 dB, <= 0.018)")
+    if not (psnr >= 40.2 and flip <= 0.018):
+        raise AssertionError("knot evaluate misses the quality gate")
+
+    for f in all_counters.values():
+        f.launches = 0
+    text = run_evaluate(evaluate, [
+        knot_cfg_path, "--width", str(W), "--height", str(H),
+        "--total-samples", "8", "--batch-spp", "8", "--output",
+        out_dir + "_1080p"])
+    eval_launches = {k: f.launches for k, f in all_counters.items()}
+    psnr8, flip8 = parse_metrics(text)
+    log(f"[evaluate knot {W}x{H} x8, one batch of 8 spp] launches "
+        f"{eval_launches}, PSNR {psnr8!r} dB, FLIP {flip8!r}")
+    for key in ("K5", "K1", "K2"):
+        if eval_launches[key] <= 0:
+            raise AssertionError(f"{key} was never launched by evaluate")
+    if not (psnr8 > 25.0 and flip8 < 0.1):
+        raise AssertionError("1080p knot evaluate is malformed")
+    launches["K5"] = eval_launches["K5"]
+
+    # ---- 8. the small-shell path through the Renderer ---------------------
+    small_scene = Scene(original_mesh=outward_sphere(32, 64, 1.0),
+                        inner_shell=small_inner_h, outer_shell=small_outer_h)
+    srend = Renderer(small_scene, kcfg.neural_network, device=dev)
+    srend.set_network(seeded)
+    srend.resize(480, 270)
+    srend.set_use_neural_query(True)
+    srend.set_camera_basis(RenderBasis(
+        [0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], 0.9))
+    trace_pallas.sweep_shells_dense.launches = 0
+    img_k = srend.render_accumulate([0.0, 0.0, 3.0], 2, batch_spp=1)
+    launches["K4"] = trace_pallas.sweep_shells_dense.launches
+    with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                   traversal):
+        img_t = srend.render_accumulate([0.0, 0.0, 3.0], 2, batch_spp=1)
+    diff = abs(img_k.astype(int) - img_t.astype(int))
+    log(f"[small shells 480x270 kernels vs twins] K4 launches "
+        f"{launches['K4']}, identical {bool((diff == 0).all())}, max |d| "
+        f"{int(diff.max())}, mean u8 {img_k.mean():.3f}")
+    if launches["K4"] <= 0:
+        raise AssertionError("K4 was never launched on the small-shell path")
+    if not (diff == 0).all() or img_k.std() < 1.0:
+        raise AssertionError("small-shell kernel frame differs from the "
+                             "twin frame")
+
     out = []
-    for key in ("K1", "K2", "K3"):
+    for key in ("K1", "K2", "K3", "K4", "K5"):
         k = kernels[key]
         t_ops = k.pop("ops") / k.pop("peak_ops")
         t_bytes = k.pop("bytes") / PEAK_BYTES
@@ -346,7 +537,30 @@ def main() -> int:
     return 0
 
 
-def run_frames(ctx, env, make_params, label, frames=3):
+def run_evaluate(evaluate, argv):
+    """The port's evaluate.main(argv) with its output captured; logs it
+    without the progress-bar redraws and returns it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = evaluate.main(argv)
+    text = buf.getvalue()
+    for line in text.replace("\r", "\n").splitlines():
+        if line.strip() and " ETA " not in line:
+            log("  | " + line)
+    if rc != 0:
+        raise AssertionError(f"evaluate {argv} returned {rc}")
+    return text
+
+
+def parse_metrics(text):
+    psnr = re.search(r"PSNR: ([0-9.]+) dB", text)
+    flip = re.search(r"FLIP: ([0-9.]+) \(mean\)", text)
+    if not (psnr and flip):
+        raise AssertionError("evaluate printed no PSNR / FLIP")
+    return float(psnr.group(1)), float(flip.group(1))
+
+
+def run_frames(ctx, env, make_params, label, frames=2):
     """One warm-up frame, then `frames` timed frames of the full-size
     workload with a running accumulation; logs Mrays/s. Returns (image,
     accum)."""
@@ -372,7 +586,7 @@ def run_frames(ctx, env, make_params, label, frames=3):
 
 @contextlib.contextmanager
 def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
-    """Route the three kernel entry points to their PyTorch twins (on the
+    """Route the five kernel entry points to their PyTorch twins (on the
     tensors' own device) for the duration of the block."""
     def lane_twin(net, inputs, active=None):
         n = inputs.shape[1]
@@ -383,8 +597,12 @@ def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
         return lane_grid_kernel.forward_lane_twin(net, x, mask)[:, :n]
 
     saved = (lane_grid_kernel.forward_lane,
-             trace_cluster.sweep_clusters_stream, traversal.trace_dense)
+             trace_cluster.sweep_clusters_stream, traversal.trace_dense,
+             traversal.sweep_shells_dense,
+             trace_cluster.trace_clusters_stream)
     lane_grid_kernel.forward_lane = lane_twin
+    traversal.sweep_shells_dense = trace_pallas.sweep_shells_dense_twin
+    trace_cluster.trace_clusters_stream = trace_cluster.trace_clusters_twin
     trace_cluster.sweep_clusters_stream = \
         lambda *a, with_fwd2=False: trace_cluster.sweep_clusters_twin(
             *a, with_fwd2=with_fwd2)
@@ -393,7 +611,8 @@ def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
         yield
     finally:
         (lane_grid_kernel.forward_lane, trace_cluster.sweep_clusters_stream,
-         traversal.trace_dense) = saved
+         traversal.trace_dense, traversal.sweep_shells_dense,
+         trace_cluster.trace_clusters_stream) = saved
 
 
 def frame_kernel_ms(ctx, env, params, accum, lane_grid_kernel, trace_cluster,

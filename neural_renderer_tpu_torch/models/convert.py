@@ -40,8 +40,14 @@ def load_params_npz(path: str) -> dict:
 
 
 def mesh_from_numpy(tris_packed: np.ndarray, num_triangles: int,
-                    device="cuda") -> MeshTensors:
-    """MeshTensors from a JAX `MeshArrays`' `tris_packed` [9, T] and
-    `num_triangles`, keeping its (leaf) triangle order."""
+                    device="cuda", **fields) -> MeshTensors:
+    """MeshTensors from a JAX `MeshArrays` carried across as numpy, keeping
+    its (leaf) triangle order, so both packages number triangles alike.
+    `tris_packed` [9, T] and `num_triangles` suffice for the shell traces;
+    `fields` may add what the ground-truth path reads, under MeshArrays'
+    names and layouts: vertices [3, V], normals, uvs [2, V], indices [3, T],
+    tri_material [T], nodes_packed [11, N], mat_scalars [NUM_SCALARS, M] and
+    the flags has_normals, has_uvs, has_materials, max_leaf."""
     return MeshTensors.from_packed(np.asarray(tris_packed, np.float32),
-                                   int(num_triangles), device=device)
+                                   int(num_triangles), device=device,
+                                   **fields)

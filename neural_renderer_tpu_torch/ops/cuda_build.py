@@ -29,6 +29,8 @@ SOURCES = {
     "sweep_stream": "sweep_stream.cu",
     "trace_dense": "trace_dense.cu",
     "lane_grid_forward": "lane_grid_forward.cu",
+    "trace_cluster_stream": "trace_cluster_stream.cu",
+    "sweep_dense": "sweep_dense.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op by op

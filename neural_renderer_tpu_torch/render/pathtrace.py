@@ -1,12 +1,14 @@
-"""Wavefront path-tracing stages of the neural frame.
+"""Wavefront path-tracing stages and the ground-truth frame.
 
-Port of the neural side of `neural_renderer_tpu/render/pathtrace.py`:
-`HitState`, `PathState`, `BounceRays`, `sample_grid`, `primary_rays`,
-`init_path_state`, `sample_bounce_directions`,
-`update_active_after_sampling`, `integrate_bounce` and `finalize`. Samples
-are flat [N = spp * pixels] with sample_idx = pixel + s * pixel_count, so
-the RNG streams match the reference; vectors are channel-major [3, N].
-The ground-truth branch is not ported yet.
+Port of `neural_renderer_tpu/render/pathtrace.py`: `HitState`, `PathState`,
+`BounceRays`, `sample_grid`, `primary_rays`, `init_path_state`,
+`sample_bounce_directions`, `update_active_after_sampling`,
+`integrate_bounce`, `finalize` (shared with the neural frame) and the
+ground-truth branch: `trace_primary_gt`, `trace_rays_mesh`,
+`trace_bounces_gt`, `lambert_shade`, `accum_image`, `render_gt_frame`,
+`render_gt_lambert`. Samples are flat [N = spp * pixels] with sample_idx =
+pixel + s * pixel_count, so the RNG streams match the reference; vectors
+are channel-major [3, N].
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ import torch
 
 from ..ops.brdf import BrdfMaterial, build_tangent_space, disney_eval, \
     disney_sample_3component
+from ..ops import traversal
 from ..ops.camera import generate_primary_rays
-from ..ops.envlight import sample_environment_clamped
+from ..ops.envlight import sample_environment, sample_environment_clamped
+from ..ops.intersect import compute_hit_data, resolve_material
 from ..ops.linalg import dot, safe_normalize, splat, where3
 from ..ops.rng import init_rng, rand01
 from ..ops.srgb import encode_srgb_u8
+from ..scene.materials import P_METALLIC, P_ROUGHNESS, P_SPECULAR
 
 
 class HitState(NamedTuple):
@@ -66,6 +71,48 @@ def primary_rays(params):
         px, py, state, params.cam_pos, params.cam_forward, params.cam_right,
         params.cam_up, params.fov_y, params.width, params.height)
     return pixel_idx, s, state, origins, dirs
+
+
+def _resolve_hits(mesh, params, origins, dirs, res) -> HitState:
+    """Hit data + material of a trace result; misses carry zeros and the
+    global material's parameters."""
+    hd = compute_hit_data(mesh, origins, dirs, res.tri, res.u, res.v, res.t)
+    rm = resolve_material(mesh, hd.material_id, hd.uv, params.material_row)
+    hit = res.hit
+    n = hit.shape[0]
+    zero3 = torch.zeros((3, n), dtype=torch.float32, device=hit.device)
+    row = params.material_row
+    global_params = torch.stack([row[P_METALLIC].expand(n),
+                                 row[P_ROUGHNESS].expand(n),
+                                 row[P_SPECULAR].expand(n)], dim=0)
+    hit_params = torch.stack([rm.metallic, rm.roughness, rm.specular], dim=0)
+    return HitState(
+        position=where3(hit, hd.position, zero3),
+        normal=where3(hit, hd.shading_normal, zero3),
+        albedo=where3(hit, rm.base_color, zero3),
+        material_params=where3(hit, hit_params, global_params),
+        hit=hit,
+        distance=torch.where(hit, res.t, torch.zeros_like(res.t)))
+
+
+def trace_primary_gt(mesh, params, origins, dirs) -> HitState:
+    """Primary rays against the classic mesh, FORWARD_ONLY (backface
+    cull)."""
+    res = traversal.trace_mesh(mesh, origins, dirs, traversal.FORWARD_ONLY)
+    return _resolve_hits(mesh, params, origins, dirs, res)
+
+
+def trace_rays_mesh(mesh, params, origins, dirs, mode,
+                    active=None) -> HitState:
+    """Generic mesh trace + material resolution."""
+    res = traversal.trace_mesh(mesh, origins, dirs, mode, active=active)
+    return _resolve_hits(mesh, params, origins, dirs, res)
+
+
+def trace_bounces_gt(mesh, params, rays: "BounceRays") -> HitState:
+    """Bounce rays against the ground-truth mesh, TraceMode ANY."""
+    return trace_rays_mesh(mesh, params, rays.origin, rays.direction,
+                           traversal.ANY, active=rays.pdf > 0.0)
 
 
 def init_path_state(params, env, hits: HitState, prim_dirs) -> PathState:
@@ -181,3 +228,59 @@ def finalize(params, path_radiance, accum):
     img = encode_srgb_u8(new_accum * inv).reshape(3, p // params.width,
                                                   params.width)
     return img.permute(1, 2, 0).contiguous(), new_accum
+
+
+def accum_image(params, accum, total_spp: int):
+    """Image straight from an accumulation buffer: normalize by the total
+    sample count and sRGB-encode. Returns u8 [rows, W, 3]."""
+    color = accum * (1.0 / torch.tensor(float(total_spp), dtype=torch.float32,
+                                        device=accum.device))
+    img = encode_srgb_u8(color).reshape(3, -1, params.width)
+    return img.permute(1, 2, 0).contiguous()
+
+
+def lambert_shade(params, env, hits: HitState, prim_dirs):
+    """N.V shading, raw environment on a miss, average over spp. Returns
+    the image u8 [rows, W, 3]."""
+    normal = safe_normalize(hits.normal, min_len=0.0)
+    normal = where3(dot(normal, prim_dirs) > 0.0, -normal, normal)
+    ndotl = torch.clamp(dot(normal, -prim_dirs), min=0.0)
+    lit = hits.albedo * ndotl[None, :]
+    color = where3(hits.hit, lit, sample_environment(env, prim_dirs))
+    spp = params.samples_per_pixel
+    p = color.shape[1] // spp
+    avg = color.reshape(3, spp, p).mean(dim=1)
+    img = encode_srgb_u8(avg).reshape(3, p // params.width, params.width)
+    return img.permute(1, 2, 0).contiguous()
+
+
+def render_gt_frame(mesh, env, params, accum):
+    """One accumulation batch of ground-truth path tracing. Returns
+    (image_u8 [H, W, 3], new_accum [3, H*W]). sample_offset must advance by
+    samples_per_pixel between calls."""
+    pixel_idx, sample_of, _, origins, dirs = primary_rays(params)
+    hits = trace_primary_gt(mesh, params, origins, dirs)
+    path = init_path_state(params, env, hits, dirs)
+
+    incoming = None
+    cur_hits = hits
+    for bounce in range(1, params.max_bounces + 1):
+        # Once no path is active a bounce is an exact identity on the path
+        # state (the trace masks on pdf > 0; integration writes under
+        # active masks).
+        if incoming is not None and not bool(path.active.any()):
+            break
+        rays = sample_bounce_directions(params, pixel_idx, sample_of,
+                                        cur_hits, path.active, incoming)
+        path = update_active_after_sampling(path, cur_hits, rays)
+        bounce_hits = trace_bounces_gt(mesh, params, rays)
+        path = integrate_bounce(params, env, path, bounce_hits, rays, bounce,
+                                pixel_idx, sample_of)
+        incoming, cur_hits = rays.direction, bounce_hits
+    return finalize(params, path.radiance, accum)
+
+
+def render_gt_lambert(mesh, env, params):
+    _, _, _, origins, dirs = primary_rays(params)
+    hits = trace_primary_gt(mesh, params, origins, dirs)
+    return lambert_shade(params, env, hits, dirs)

@@ -1,41 +1,58 @@
-"""Mesh tensors for the shell traces.
+"""Mesh container: host-side buffers and device-ready tensors.
 
-Port of the parts of `neural_renderer_tpu/scene/mesh.py`,
-`scene/mesh_loader.py::generate_uv_sphere` and `scene/bvh.py` (the numpy
-SAH build) that the neural frame needs. The SAH build is used only for its
-leaf order: triangles in leaf order make consecutive 256-triangle clusters
-spatially tight. The shell sweeps' t outputs do not depend on triangle order
-(a min and a strict second-min are order-independent), so this order need
-not match the JAX package's.
+Port of `neural_renderer_tpu/scene/mesh.py` (`Mesh` -> `HostMesh`,
+`MeshArrays` -> `MeshTensors`, `to_arrays` -> `to_tensors`) and of
+`scene/mesh_loader.py::generate_uv_sphere`. `HostMesh.build_bvh` reorders
+the triangles into SAH-BVH leaf order (`scene/bvh.py`), which makes
+consecutive 256-triangle clusters spatially tight; `to_tensors` emits the
+channel-major tensors the traces, the BVH walk and the hit-data stage read.
+Per-mesh materials are constant rows (`mat_scalars`); the texture atlas is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..ops.trace_cluster import cluster_bounds_from_packed
-
-_NUM_BINS = 16
-_TRAVERSAL_COST = 1.0
-_INTERSECT_COST = 1.5
+from .bvh import (BvhArrays, build_bvh, compute_skip_links,
+                  remap_material_ranges)
+from .materials import NUM_SCALARS, Material
 
 
 @dataclass
 class MeshTensors:
-    """Device-side mesh: packed triangles in leaf order.
+    """Device-side mesh, triangles in leaf order.
 
     tris_packed rows 0-2 v0, 3-5 e1 = v1 - v0, 6-8 e2 = v2 - v0;
     cluster_bounds rows 0-2 min, 3-5 max of consecutive 256-triangle
-    clusters; bounds_min/max the root AABB."""
+    clusters; bounds_min/max the root AABB. These five serve the shell
+    traces. The ground-truth path also reads the indexed geometry, the
+    packed BVH nodes (rows 0-2 bmin, 3-5 bmax, 6 left, 7 skip, 8 first,
+    9 count, 10 is_leaf, the int rows bitcast to f32) and the material rows;
+    they are None on a mesh built from packed triangles only."""
     tris_packed: torch.Tensor     # [9, T] f32 (T >= 1; zeros when empty)
     cluster_bounds: torch.Tensor  # [6, C] f32
     bounds_min: torch.Tensor      # [3] f32
     bounds_max: torch.Tensor      # [3] f32
     num_triangles: int
+    vertices: torch.Tensor | None = None      # [3, V] f32
+    normals: torch.Tensor | None = None       # [3, V] f32
+    uvs: torch.Tensor | None = None           # [2, V] f32
+    indices: torch.Tensor | None = None       # [3, T] int64
+    tri_material: torch.Tensor | None = None  # [T] int64, -1 = global
+    nodes_packed: torch.Tensor | None = None  # [11, N] f32
+    mat_scalars: torch.Tensor | None = None   # [NUM_SCALARS, M] f32
+    has_normals: bool = False
+    has_uvs: bool = False
+    has_materials: bool = False
+    has_textures: bool = False
+    has_normal_maps: bool = False
+    max_leaf: int = 4
 
     @property
     def is_empty(self) -> bool:
@@ -43,7 +60,9 @@ class MeshTensors:
 
     @staticmethod
     def from_packed(tris_packed: np.ndarray, num_triangles: int,
-                    device="cuda") -> "MeshTensors":
+                    device="cuda", **extra) -> "MeshTensors":
+        """From packed triangles; `extra` are further fields as numpy arrays
+        (moved to `device`) or flags."""
         tp = np.ascontiguousarray(tris_packed, np.float32)
         if num_triangles == 0:
             lo = hi = np.zeros(3, np.float32)
@@ -55,18 +74,53 @@ class MeshTensors:
 
         def t(x):
             return torch.as_tensor(np.array(x, np.float32), device=device)
+
+        fields = {}
+        for name, val in extra.items():
+            if name in ("indices", "tri_material"):
+                val = torch.as_tensor(np.array(val, np.int64), device=device)
+            elif isinstance(val, np.ndarray):
+                val = t(val)
+            fields[name] = val
         return MeshTensors(
             tris_packed=t(tp),
             cluster_bounds=t(cluster_bounds_from_packed(tp, num_triangles)),
             bounds_min=t(lo), bounds_max=t(hi),
-            num_triangles=int(num_triangles))
+            num_triangles=int(num_triangles), **fields)
+
+
+def pack_nodes(bvh: BvhArrays) -> np.ndarray:
+    """[11, N] f32 node rows for the BVH walk (see MeshTensors)."""
+    nodes = np.zeros((11, bvh.num_nodes), np.float32)
+    nodes[0:3] = bvh.bounds_min.T
+    nodes[3:6] = bvh.bounds_max.T
+    for row, ints in ((6, bvh.left), (7, compute_skip_links(bvh)),
+                      (8, bvh.first), (9, bvh.count), (10, bvh.is_leaf)):
+        nodes[row] = ints.astype(np.int32).view(np.float32)
+    return nodes
 
 
 @dataclass
 class HostMesh:
-    """Indexed triangle mesh on the host (vertices [V, 3], indices [T, 3])."""
-    vertices: np.ndarray
-    indices: np.ndarray
+    """Indexed triangle mesh on the host: vertices [V, 3], indices [T, 3],
+    optional per-vertex normals [V, 3] and texcoords [V, 2], per-primitive
+    material ranges and constant materials."""
+    vertices: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 3), np.float32))
+    indices: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 3), np.uint32))
+    normals: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 3), np.float32))
+    texcoords: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 2), np.float32))
+    material_map: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.uint32))  # first tri per range
+    material_ids: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32))   # material per range
+    materials: list = field(default_factory=list)        # [Material]
+    has_mesh_materials: bool = False
+    _bvh: BvhArrays | None = field(default=None, repr=False)
+    _tri_material: np.ndarray | None = field(default=None, repr=False)
 
     @property
     def num_triangles(self) -> int:
@@ -79,33 +133,89 @@ class HostMesh:
         return (self.vertices.min(axis=0).astype(np.float32),
                 self.vertices.max(axis=0).astype(np.float32))
 
-    def packed_leaf_order(self) -> np.ndarray:
-        """[9, max(T, 1)] packed triangles reordered into SAH-BVH leaf
-        order."""
+    def scale(self, s: float):
+        if s != 1.0:
+            self.vertices = (self.vertices * np.float32(s)).astype(np.float32)
+            self._bvh = None
+
+    def build_bvh(self, max_leaf_size: int = 4) -> BvhArrays:
+        """Build (or return the cached) SAH BVH; reorders self.indices to
+        leaf order and remaps the material ranges."""
+        if self._bvh is not None:
+            return self._bvh
         t = self.num_triangles
         if t == 0:
-            return np.zeros((9, 1), np.float32)
+            self._bvh = BvhArrays(
+                bounds_min=np.zeros((1, 3), np.float32),
+                bounds_max=np.zeros((1, 3), np.float32),
+                left=np.full(1, -1, np.int32), right=np.full(1, -1, np.int32),
+                first=np.zeros(1, np.int32), count=np.zeros(1, np.int32),
+                is_leaf=np.ones(1, np.int32))
+            self._tri_material = np.zeros(0, np.int32)
+            return self._bvh
         tri = self.vertices[self.indices.astype(np.int64)]  # [T, 3, 3]
-        perm = sah_leaf_order(tri.min(axis=1), tri.max(axis=1))
-        tri = tri[perm]
+        bvh, perm = build_bvh(tri.min(axis=1), tri.max(axis=1),
+                              max_leaf_size=max_leaf_size)
+        self.indices = self.indices[perm]
+        mmap, mids, per_tri = remap_material_ranges(
+            self.material_map, self.material_ids, perm, t)
+        self.material_map = mmap.astype(np.uint32)
+        self.material_ids = mids.astype(np.int32)
+        self._tri_material = per_tri
+        self._bvh = bvh
+        return bvh
+
+    def to_tensors(self, device="cuda") -> MeshTensors:
+        bvh = self.build_bvh()
+        nv, nt = self.vertices.shape[0], self.num_triangles
+        v, t = max(1, nv), max(1, nt)
+        vertices = np.zeros((v, 3), np.float32)
+        vertices[:nv] = self.vertices
+        normals = np.zeros((v, 3), np.float32)
+        has_normals = self.normals.shape[0] > 0
+        if has_normals:
+            normals[:self.normals.shape[0]] = self.normals
+        uvs = np.zeros((v, 2), np.float32)
+        has_uvs = self.texcoords.shape[0] > 0
+        if has_uvs:
+            uvs[:self.texcoords.shape[0]] = self.texcoords
+        indices = np.zeros((t, 3), np.int64)
+        indices[:nt] = self.indices.astype(np.int64)
+        tri_material = np.full(t, -1, np.int64)
+        tri_material[:nt] = self._tri_material
+
+        tri = vertices[indices]  # [T, 3, 3]
         packed = np.zeros((9, t), np.float32)
         packed[0:3] = tri[:, 0].T
         packed[3:6] = (tri[:, 1] - tri[:, 0]).T
         packed[6:9] = (tri[:, 2] - tri[:, 0]).T
-        return packed
 
-    def to_tensors(self, device="cuda") -> MeshTensors:
-        return MeshTensors.from_packed(self.packed_leaf_order(),
-                                       self.num_triangles, device=device)
+        rows = [m.scalar_row() for m in self.materials] or \
+            [Material.default().scalar_row()]
+        mesh = MeshTensors.from_packed(
+            packed, nt, device=device, vertices=vertices.T.copy(),
+            normals=normals.T.copy(), uvs=uvs.T.copy(),
+            indices=indices.T.copy(), tri_material=tri_material,
+            nodes_packed=pack_nodes(bvh),
+            mat_scalars=np.stack(rows, axis=1).reshape(NUM_SCALARS, -1),
+            has_normals=has_normals, has_uvs=has_uvs,
+            has_materials=self.has_mesh_materials and len(self.materials) > 0,
+            max_leaf=max(1, bvh.max_leaf_count()))
+        # The walk and the skip flags use the BVH root box, as the JAX
+        # package does.
+        mesh.bounds_min = torch.as_tensor(bvh.bounds_min[0].copy(),
+                                          device=device)
+        mesh.bounds_max = torch.as_tensor(bvh.bounds_max[0].copy(),
+                                          device=device)
+        return mesh
 
 
 def generate_uv_sphere(stacks: int, slices: int, radius: float) -> HostMesh:
-    """Procedural UV sphere (reference mesh_loader.cpp:719-764), with the
-    reference's inward winding."""
+    """Procedural UV sphere with per-vertex normals and uvs, wound inward
+    like `neural_renderer_tpu/scene/mesh_loader.py::generate_uv_sphere`."""
     if stacks < 2 or slices < 3:
-        return HostMesh(np.zeros((0, 3), np.float32),
-                        np.zeros((0, 3), np.uint32))
-    verts = []
+        return HostMesh()
+    verts, normals, uvs = [], [], []
     for i in range(stacks + 1):
         phi = (i / stacks) * math.pi
         for j in range(slices + 1):
@@ -114,6 +224,8 @@ def generate_uv_sphere(stacks: int, slices: int, radius: float) -> HostMesh:
             y = math.cos(phi)
             z = math.sin(phi) * math.sin(theta)
             verts.append([x * radius, y * radius, z * radius])
+            normals.append([x, y, z])
+            uvs.append([j / slices, i / stacks])
     idx = []
     for i in range(stacks):
         for j in range(slices):
@@ -123,106 +235,15 @@ def generate_uv_sphere(stacks: int, slices: int, radius: float) -> HostMesh:
             p3 = p2 + 1
             idx.append([p0, p2, p1])
             idx.append([p1, p2, p3])
-    return HostMesh(np.asarray(verts, np.float32), np.asarray(idx, np.uint32))
+    return HostMesh(np.asarray(verts, np.float32), np.asarray(idx, np.uint32),
+                    np.asarray(normals, np.float32),
+                    np.asarray(uvs, np.float32),
+                    material_map=np.zeros(1, np.uint32),
+                    material_ids=np.full(1, -1, np.int32))
 
 
 def outward_sphere(stacks: int, slices: int, radius: float) -> HostMesh:
     """UV sphere with outward geometric normals (the shell scenes')."""
     m = generate_uv_sphere(stacks, slices, radius)
-    return HostMesh(m.vertices, m.indices[:, [0, 2, 1]].copy())
-
-
-# ---------------------------------------------------------------------------
-# Binned SAH build (copy of neural_renderer_tpu/scene/bvh.py::_build_numpy),
-# reduced to the triangle permutation.
-# ---------------------------------------------------------------------------
-
-def _surface_area(bmin, bmax):
-    d = np.maximum(bmax - bmin, 0.0)
-    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
-                  + d[..., 2] * d[..., 0])
-
-
-def sah_leaf_order(tri_min, tri_max, max_leaf_size: int = 4) -> np.ndarray:
-    """Binned-SAH BVH build; returns perm with new_tris[i] = old[perm[i]]
-    (leaf order)."""
-    tri_min = np.asarray(tri_min, np.float32)
-    tri_max = np.asarray(tri_max, np.float32)
-    centers = 0.5 * (tri_min + tri_max)
-    perm = np.arange(tri_min.shape[0], dtype=np.int64)
-    stack = [(0, tri_min.shape[0])]
-    while stack:
-        start, end = stack.pop()
-        ids = perm[start:end]
-        n = end - start
-        split = None
-        if n > 1:
-            split = _find_sah_split(tri_min[ids], tri_max[ids], centers[ids],
-                                    n)
-        if split is None and n > max_leaf_size:
-            cmin = centers[ids].min(axis=0)
-            cmax = centers[ids].max(axis=0)
-            axis = int(np.argmax(cmax - cmin))
-            order = np.argsort(centers[ids, axis], kind="stable")
-            lmask = np.zeros(n, dtype=bool)
-            lmask[order[:n // 2]] = True
-            split = (lmask, float("inf"))
-        elif split is not None and n <= max_leaf_size:
-            if split[1] >= n * _INTERSECT_COST:
-                split = None
-        if split is None:
-            continue
-        lmask = split[0]
-        left_ids, right_ids = ids[lmask], ids[~lmask]
-        nl = left_ids.shape[0]
-        perm[start:start + nl] = left_ids
-        perm[start + nl:end] = right_ids
-        stack.append((start + nl, end))
-        stack.append((start, start + nl))
-    return perm
-
-
-def _find_sah_split(tmin, tmax, cen, n):
-    """Binned SAH over all 3 axes; returns (left_mask, split_cost) or None."""
-    cmin = cen.min(axis=0)
-    extent = cen.max(axis=0) - cmin
-    parent_sa = _surface_area(tmin.min(axis=0), tmax.max(axis=0))
-    if parent_sa <= 0.0:
-        return None
-    best = None
-    for axis in range(3):
-        if extent[axis] <= 1e-12:
-            continue
-        scale = _NUM_BINS / extent[axis]
-        bin_of = np.minimum(((cen[:, axis] - cmin[axis]) * scale)
-                            .astype(np.int32), _NUM_BINS - 1)
-        bin_counts = np.bincount(bin_of, minlength=_NUM_BINS)
-        bmin = np.full((_NUM_BINS, 3), np.inf, dtype=np.float64)
-        bmax = np.full((_NUM_BINS, 3), -np.inf, dtype=np.float64)
-        for c in range(3):
-            np.minimum.at(bmin[:, c], bin_of, tmin[:, c])
-            np.maximum.at(bmax[:, c], bin_of, tmax[:, c])
-        lmin = np.minimum.accumulate(bmin, axis=0)
-        lmax = np.maximum.accumulate(bmax, axis=0)
-        rmin = np.minimum.accumulate(bmin[::-1], axis=0)[::-1]
-        rmax = np.maximum.accumulate(bmax[::-1], axis=0)[::-1]
-        lcount = np.cumsum(bin_counts)
-        rcount = n - lcount
-        valid = (lcount[:-1] > 0) & (rcount[:-1] > 0)
-        if not valid.any():
-            continue
-        sa_l = _surface_area(lmin[:-1], lmax[:-1])
-        sa_r = _surface_area(rmin[1:], rmax[1:])
-        cost = _TRAVERSAL_COST + _INTERSECT_COST * (
-            sa_l * lcount[:-1] + sa_r * rcount[:-1]) / parent_sa
-        cost = np.where(valid, cost, np.inf)
-        i = int(np.argmin(cost))
-        if best is None or cost[i] < best[0]:
-            best = (float(cost[i]), i, bin_of)
-    if best is None:
-        return None
-    cost, edge, bin_of = best
-    lmask = bin_of <= edge
-    if not lmask.any() or lmask.all():
-        return None
-    return lmask, cost
+    m.indices = m.indices[:, [0, 2, 1]].copy()
+    return m

@@ -1,13 +1,17 @@
-"""Profile the PyTorch port's 1080p neural frame on one GPU.
+"""Profile the PyTorch port's 1080p frames on one GPU.
 
     python scripts/profile_torch_frame.py [--weights trained|seeded]
+    python scripts/profile_torch_frame.py --knot gt|neural [--spp 8]
 
-Renders the chip_smoke.py workload (shelled sphere, lane S=16, 1920x1080,
-1 spp, 3 bounces): two warm-up frames, then three frames under
-torch.profiler. Prints the wall time per frame, the summed device time of
-all kernels and the device's idle share over the window, and the kernels
-with the largest device time (the port's three CUDA kernels by name, the
-rest PyTorch's own). Needs a CUDA device; no JAX.
+Default: the chip_smoke.py sphere workload (shelled sphere, lane S=16,
+1920x1080, 1 spp, 3 bounces): two warm-up frames, then three frames under
+torch.profiler. With --knot: one pass of `evaluate` on
+configs/knot/knot_lane.json (ground truth or neural) at 1920x1080, batches
+of --spp samples per pixel through the Renderer: one warm-up batch, then
+--frames batches under the profiler. Prints the wall time per frame, the
+summed device time of all kernels and the device's idle share over the
+window, and the kernels with the largest device time (the port's CUDA
+kernels by name, the rest PyTorch's own). Needs a CUDA device; no JAX.
 """
 
 from __future__ import annotations
@@ -25,14 +29,14 @@ def main():
     ap.add_argument("--weights", choices=("trained", "seeded"),
                     default="trained")
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--knot", choices=("gt", "neural"), default=None)
+    ap.add_argument("--spp", type=int, default=8)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         sys.exit("profile_torch_frame: needs a CUDA device")
     sys.path.insert(0, ROOT)
-    from torch.profiler import ProfilerActivity, profile
-
     from neural_renderer_tpu_torch.models import convert, nbvh
     from neural_renderer_tpu_torch.render.neural_frame import \
         render_neural_frame
@@ -44,6 +48,11 @@ def main():
 
     dev = torch.device("cuda")
     w, h = 1920, 1080
+    if args.knot:
+        render = knot_pass(args.knot, args.spp, w, h, dev)
+        report(profile_frames(render, 1, args.frames), args.frames,
+               f"knot {args.knot} pass, {args.spp} spp per batch")
+        return
     outer_h = outward_sphere(24, 48, 1.15)
     cfg = nbvh.NbvhConfig(grid_type="lane", lane_sublanes=16,
                           lane_entry_pack=2)
@@ -65,30 +74,74 @@ def main():
             sample_offset=offset, scene_scale=2.0, outer_shell_min=omin,
             outer_shell_inv_extent=1.0 / (omax - omin), device=dev)
 
-    accum = torch.zeros((3, w * h), device=dev)
-    for i in range(2):
-        _, accum = render_neural_frame(ctx, env, params(i), accum)
+    state = {"accum": torch.zeros((3, w * h), device=dev), "i": 0}
+
+    def render():
+        _, state["accum"] = render_neural_frame(ctx, env, params(state["i"]),
+                                                state["accum"])
+        state["i"] += 1
+
+    report(profile_frames(render, 2, args.frames), args.frames,
+           f"weights {args.weights}")
+
+
+def knot_pass(which, spp, w, h, dev):
+    """`render()` that runs one batch of the knot's ground-truth or neural
+    pass as `evaluate` does."""
+    from neural_renderer_tpu_torch import config as nr_config
+    from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
+                                                           Renderer)
+    from neural_renderer_tpu_torch.scene.scene import Scene
+    cfg = nr_config.load_config(os.path.join(ROOT, "configs", "knot",
+                                             "knot_lane.json"))
+    renderer = Renderer(Scene.from_config(cfg),
+                        cfg.neural_network, device=dev)
+    if not renderer.load_weights_from_file(cfg.checkpoint_path):
+        sys.exit("profile_torch_frame: knot weights missing")
+    pos, yaw, pitch = nr_config.matrix_to_camera_state(cfg.camera.matrix)
+    renderer.set_camera_basis(RenderBasis(
+        *nr_config.camera_basis_from_state(yaw, pitch, cfg.camera.yfov)))
+    renderer.resize(w, h)
+    renderer.set_bounce_count(cfg.rendering.bounce_count)
+    renderer.set_use_neural_query(which == "neural")
+    return lambda: renderer.render_accumulate(pos, spp, batch_spp=spp)
+
+
+def profile_frames(render, warmup, frames):
+    """(wall seconds, profiler) over `frames` calls of render() after
+    `warmup` unprofiled ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        render()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(args.frames):
-            _, accum = render_neural_frame(ctx, env, params(2 + i), accum)
+        for _ in range(frames):
+            render()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return wall, prof
+
+
+def report(result, frames, label):
+    import torch
+    wall, prof = result
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in events)
-    gpu_name = torch.cuda.get_device_name(0)
-    print(f"device {gpu_name}; weights {args.weights}; {args.frames} frames")
-    print(f"wall ms/frame {wall * 1e3 / args.frames:.3f}; device kernel "
-          f"ms/frame {dev_us / 1e3 / args.frames:.3f}; idle share "
+    print(f"device {torch.cuda.get_device_name(0)}; {label}; {frames} "
+          f"frames; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    print(f"wall ms/frame {wall * 1e3 / frames:.3f}; device kernel "
+          f"ms/frame {dev_us / 1e3 / frames:.3f}; idle share "
           f"{1.0 - dev_us / 1e6 / wall:.3f} (profiler on)")
     print(f"{'kernel':60s} {'calls/frame':>11s} {'device ms/frame':>15s}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"{e.key[:60]:60s} {e.count / args.frames:11.1f} "
-              f"{e.self_device_time_total / 1e3 / args.frames:15.3f}")
+        print(f"{e.key[:60]:60s} {e.count / frames:11.1f} "
+              f"{e.self_device_time_total / 1e3 / frames:15.3f}")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ toolkit. The repository's conftest.py imports JAX, so run it with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Every test needs a CUDA device and skips without one. Tolerances: the two
-trace kernels are built with -fmad=false and evaluate the twin's
+Every test needs a CUDA device and skips without one. Tolerances: the four
+trace and sweep kernels are built with -fmad=false and evaluate the twin's
 expressions in the twin's order, so they are held bit-exact; the network
 kernel sums its bf16 products in another order than the twin's f32 matmul,
 so it is held to max|d| / max|twin| < 2e-2; whole frames to
@@ -77,6 +77,60 @@ def test_dense_kernel_bit_exact(cuda, mode):
     twin = trace_pallas.trace_dense_twin(o3, d3, tp, mode, bm)
     assert torch.equal(ker[0], twin[0])
     assert torch.equal(ker[1].view(torch.int32), twin[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("early_out", [True, False])
+@pytest.mark.parametrize("mode", [traversal.ANY, traversal.FORWARD_ONLY,
+                                  traversal.BACKWARD_ONLY])
+def test_clustered_trace_kernel_bit_exact(cuda, mode, early_out):
+    """K5 on a 9,216-triangle sphere: t, triangle ids and the clusters each
+    block swept equal the twin's; sorted rays so the break fires."""
+    mesh = outward_sphere(48, 96, 1.0).to_tensors(cuda)
+    o, d = _rays(cuda, n=4000, seed=11)
+    active = torch.rand(4000, generator=torch.Generator().manual_seed(2)) \
+        .to(cuda) < 0.9
+    order = traversal._ray_sort_order(o, d, active)
+    ops = traversal.clustered_trace_operands(mesh, o[:, order], d[:, order],
+                                             active[order])
+    args = ops[:7]
+    swept_k = torch.zeros_like(ops[5])
+    swept_t = torch.zeros_like(ops[5])
+    before = trace_cluster.trace_clusters_stream.launches
+    kt, ktri = trace_cluster.trace_clusters_stream(*args, mode, early_out,
+                                                   swept_k)
+    assert trace_cluster.trace_clusters_stream.launches == before + 1
+    tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, early_out,
+                                                 swept_t)
+    assert torch.equal(kt, tt) and torch.equal(ktri, ttri)
+    assert torch.equal(swept_k, swept_t)
+    assert (kt < 1e30).sum() > 500
+    if not early_out:
+        assert torch.equal(swept_k, ops[5])
+    brute = traversal.trace_mesh_brute(mesh, o[:, order][:, :512],
+                                       d[:, order][:, :512], mode)
+    live = active[order][:512]
+    assert torch.equal(kt[:512][live], brute.t[live])
+
+
+@pytest.mark.parametrize("with_fwd2", [True, False])
+def test_dense_sweep_kernel_bit_exact(cuda, with_fwd2):
+    """K4 on small shells, with a dead block and without an inner shell."""
+    outer = outward_sphere(16, 32, 1.2).to_tensors(cuda)
+    inner = outward_sphere(16, 32, 0.8).to_tensors(cuda)
+    empty = outward_sphere(0, 0, 1.0).to_tensors(cuda)
+    o, d = _rays(cuda, n=4000)
+    o[:, -600:] = 3.0 * d[:, -600:]          # pointing away: a dead block
+    for inner_mesh in (inner, empty):
+        ops = traversal.dense_sweep_operands(outer, inner_mesh, o, d)
+        assert ops[4].min().item() == 0 and ops[4].max().item() == 1
+        before = trace_pallas.sweep_shells_dense.launches
+        ker = trace_pallas.sweep_shells_dense(*ops[:4], with_fwd2, ops[4])
+        assert trace_pallas.sweep_shells_dense.launches == before + 1
+        twin = trace_pallas.sweep_shells_dense_twin(*ops[:4], with_fwd2,
+                                                    ops[4])
+        assert ker.shape[0] == (5 if with_fwd2 else 4)
+        assert torch.equal(ker, twin)
+        assert (ker[0] < 1e30).sum() > 500
 
 
 @pytest.mark.parametrize("entry_pack", [1, 2])

@@ -28,6 +28,10 @@ from neural_renderer_tpu_torch.render.params import RenderParams
 from neural_renderer_tpu_torch.scene.envmap import EnvironmentTensors
 from neural_renderer_tpu_torch.scene.materials import Material
 
+# One intra-op thread: the suite runs several pytest workers side by side,
+# and PyTorch's default of one thread per core oversubscribes them.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CAM = dict(cam_pos=[0.3, -0.2, 3.0], cam_forward=[0.0, 0.0, -1.0],
@@ -170,11 +174,14 @@ def test_sample_bounce_directions(first_bounce):
 
 
 def test_import_without_jax():
-    """The port imports with JAX made unimportable (sys.modules['jax'] =
-    None), every module of the package included."""
+    """The port imports with JAX, the JAX package, imageio, matplotlib and
+    orbax made unimportable (sys.modules[name] = None), every module of the
+    package included."""
     code = (
-        "import sys, importlib, pkgutil; sys.modules['jax'] = None\n"
-        "sys.modules['neural_renderer_tpu'] = None\n"
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'neural_renderer_tpu', 'imageio', 'matplotlib',"
+        " 'orbax'):\n"
+        "    sys.modules[name] = None\n"
         "import neural_renderer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

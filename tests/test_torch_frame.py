@@ -36,6 +36,10 @@ from neural_renderer_tpu_torch.render.params import RenderParams
 from neural_renderer_tpu_torch.scene.envmap import EnvironmentTensors
 from neural_renderer_tpu_torch.scene.materials import Material
 
+# One intra-op thread: the suite runs several pytest workers side by side,
+# and PyTorch's default of one thread per core oversubscribes them.
+torch.set_num_threads(1)
+
 _CAM = dict(cam_pos=[0, 0, 3.0], cam_forward=[0, 0, -1.0],
             cam_right=[1, 0, 0.0], cam_up=[0, 1, 0.0], fov_y=0.9,
             scene_scale=2.0)

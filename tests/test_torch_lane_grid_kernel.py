@@ -23,6 +23,10 @@ from neural_renderer_tpu.ops.lane_grid_kernel import forward_lane as jforward
 from neural_renderer_tpu_torch.models import convert, nbvh
 from neural_renderer_tpu_torch.ops import lane_grid_kernel
 
+# One intra-op thread: the suite runs several pytest workers side by side,
+# and PyTorch's default of one thread per core oversubscribes them.
+torch.set_num_threads(1)
+
 N = 300
 
 

@@ -30,6 +30,10 @@ from neural_renderer_tpu_torch.ops import trace_cluster, trace_pallas
 from neural_renderer_tpu_torch.ops import traversal as ttr
 from neural_renderer_tpu_torch.scene.mesh import HostMesh
 
+# One intra-op thread: the suite runs several pytest workers side by side,
+# and PyTorch's default of one thread per core oversubscribes them.
+torch.set_num_threads(1)
+
 GRAZE = 0.01
 
 
@@ -158,14 +162,44 @@ def test_worklist_lists_clusters_in_order(shells):
 
 
 def test_unported_branches_raise():
-    """Branches whose TPU kernels are still queued raise on any device."""
+    """No branch of trace_mesh or sweep_shells raises NotImplementedError
+    any more. The branches that used to (small shells: the dense sweep; a
+    mesh above 4,096 triangles: the clustered trace; shells above 16,384
+    triangles or no outer shell: one trace per row) agree with each other
+    where their domains meet."""
     o, d = (torch.as_tensor(x) for x in _rays(n=64))
-    small = HostMesh(*_sphere_arrays(8, 16, 1.0)).to_tensors("cpu")
-    with pytest.raises(NotImplementedError, match="_sweep_kernel"):
-        ttr.sweep_shells(small, small, o, d)
+    small_o = HostMesh(*_sphere_arrays(8, 16, 1.2)).to_tensors("cpu")
+    small_i = HostMesh(*_sphere_arrays(8, 16, 0.8)).to_tensors("cpu")
+    dense = ttr.sweep_shells(small_o, small_i, o, d, with_fwd2=True)
+    per_mesh = ttr._sweep_per_mesh(small_o, small_i, o, d, True)
+    for f in ttr.ShellSweep._fields[:4]:
+        assert torch.equal(getattr(dense, f), getattr(per_mesh, f)), f
+    # A convex shell has one forward crossing: no second one on either path.
+    assert (dense.outer_fwd2 == 1e30).all()
+    assert (per_mesh.outer_fwd2 == 1e30).all()
+    # No outer shell: the inner rows alone.
+    empty = HostMesh().to_tensors("cpu")
+    no_outer = ttr.sweep_shells(empty, small_i, o, d)
+    assert (no_outer.outer_fwd == 1e30).all()
+    assert torch.equal(no_outer.inner_fwd, dense.inner_fwd)
+    assert (ttr.sweep_shells(empty, empty, o, d).inner_bwd == 1e30).all()
+    # Above 4,096 triangles: the clustered trace, equal to the oracle.
     big = HostMesh(*_sphere_arrays(40, 60, 1.0)).to_tensors("cpu")
-    with pytest.raises(NotImplementedError, match="_stream_kernel"):
-        ttr.trace_mesh(big, o, d)
+    assert big.num_triangles > 4096
+    got = ttr.trace_mesh(big, o, d)
+    ref = ttr.trace_mesh_brute(big, o, d)
+    assert torch.equal(got.t, ref.t) and got.hit.sum() > 10
+    assert torch.equal(got.tri[ref.hit], ref.tri[ref.hit])
+    # Above 16,384 triangles the sweep goes row by row through that trace.
+    huge_o = HostMesh(*_sphere_arrays(96, 96, 1.2)).to_tensors("cpu")
+    assert huge_o.num_triangles > ttr.DENSE_MAX_TRIANGLES
+    rows = ttr.sweep_shells(huge_o, small_i, o, d, with_fwd2=True)
+    hit = (rows.outer_fwd < 1e30) & (dense.outer_fwd < 1e30)
+    assert hit.sum() > 10
+    # The 256-triangle polyhedron lies up to ~0.1 inside the fine sphere.
+    assert torch.allclose(rows.outer_fwd[hit], dense.outer_fwd[hit],
+                          atol=0.15)
+    assert torch.equal(rows.inner_bwd, dense.inner_bwd)
 
 
 def _sphere_arrays(stacks, slices, radius):
