@@ -37,7 +37,22 @@ small-shell scene. Phases, each failing the run:
      neural pass;
   8. render a procedural small-shell scene at 480x270 through the Renderer,
      kernels against twins on the card: the two images must be identical,
-     with the dense sweep's counter above 0.
+     with the dense sweep's counter above 0;
+  9. hold the training kernels against their twins on 131,072 segments the
+     port's sampler draws from the knot (3 per ray), with the 48k-step knot
+     weights in training layout: the training forward (K2 at entry_pack 1,
+     32 rows) within K2's 2e-2, every gradient of the network backward (K6)
+     under the loss's own cotangent within 1e-3 of the twin's largest
+     |grad| (f32 atomics reorder the sums); time kernel, twin and a library
+     version;
+ 10. score the 48k-step weights on one sampled 16,384 x 3 batch (total loss
+     under 0.03), then train 100 steps from seeded weights through
+     `cli/train.py` (16,384 segments x 3 per ray, cosine schedule), every
+     launch counter set to 0 first: the loss must at least halve, K2 and K6
+     must launch, and the checkpoint must load in the Renderer and render
+     through `evaluate`;
+ 11. time training steps (Msegments/s, synchronised, after a warm-up step)
+     at 262,144 segments: the knot at 3 per ray, the sphere at 1.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -106,8 +121,10 @@ def main() -> int:
 
     from neural_renderer_tpu_torch import config as nr_config
     from neural_renderer_tpu_torch.cli import evaluate
+    from neural_renderer_tpu_torch.cli import train as train_cli
     from neural_renderer_tpu_torch.models import convert, nbvh
     from neural_renderer_tpu_torch.ops import (cuda_build, lane_grid_kernel,
+                                               lane_grid_train_kernel,
                                                trace_cluster, trace_pallas,
                                                traversal)
     from neural_renderer_tpu_torch.render import neural_frame
@@ -121,6 +138,7 @@ def main() -> int:
     from neural_renderer_tpu_torch.scene.materials import Material
     from neural_renderer_tpu_torch.scene.mesh import outward_sphere
     from neural_renderer_tpu_torch.scene.scene import Scene
+    from neural_renderer_tpu_torch import train as nr_train
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -517,8 +535,129 @@ def main() -> int:
         raise AssertionError("small-shell kernel frame differs from the "
                              "twin frame")
 
+    # ---- 9. K6 against its twin on knot segments ------------------------
+    ltk = lane_grid_train_kernel
+    kmeshes = [krend._mesh_tensors(m) for m in
+               ("original_mesh", "outer_shell", "inner_shell")]
+    komin, kinv, kradius = nr_train.segment_domain(kscene, dev)
+    krow = nr_train.scene_global_row(kscene, dev)
+    kgen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        kb = nr_train.sample_segment_batch(kgen, *kmeshes, komin, kinv, SLICE,
+                                           kradius, 3, global_row=krow)
+    torch.cuda.synchronize()
+    log(f"[K6 knot segments] sampled {SLICE} x 3 per ray in "
+        f"{time.perf_counter() - t0:.3f} s: valid "
+        f"{int(kb.valid.sum())}, present {int(kb.presence.sum())}")
+    knet = convert.params_from_numpy(convert.load_params_npz(os.path.join(
+        ROOT, "configs", "knot", "lane_step48000.npz")), krend.net_config,
+        device=dev)
+    x9 = kb.inputs.contiguous()
+    out9 = lane_grid_kernel.forward_train(knet, x9)
+    twin9 = nbvh.mlp_forward(list(knet.mlp), nbvh.encode_inputs(knet, x9))
+    rel9 = ((out9 - twin9).abs().max() / twin9.abs().max()).item()
+    log(f"[K2 training layout] rows {x9.shape[1]} relative |kernel - twin| "
+        f"{rel9!r}")
+    if not rel9 < 2e-2:
+        raise AssertionError(f"K2 training layout: relative error {rel9}")
+    out_req = out9.detach().requires_grad_(True)
+    loss9, _ = nr_train.shell_losses(out_req, kb)
+    (g9,) = torch.autograd.grad(loss9, out_req)
+    got6 = ltk.backward_lane(knet, x9, g9)
+    ref6 = ltk.backward_twin(knet, x9, g9)
+    torch.cuda.synchronize()
+    err6, worst6 = 0.0, 0.0
+    for label, a, b in zip(("lane", "w0", "w1", "w2", "w3", "wout"),
+                           [got6[0], *got6[1]], [ref6[0], *ref6[1]]):
+        e = (a - b).abs().max().item()
+        rel = e / (b.abs().max().item() + 1e-30)
+        err6, worst6 = max(err6, e), max(worst6, rel)
+        log(f"[K6 {label}] max|kernel - twin| {e!r}, relative to max|twin| "
+            f"{rel!r}")
+    if not worst6 <= 1e-3:
+        raise AssertionError(f"K6: relative error {worst6} > 1e-3")
+    ms6 = time_ms(lambda: ltk.backward_lane(knet, x9, g9))
+    pms6 = time_ms(lambda: ltk.backward_twin(knet, x9, g9), reps=2)
+    lib6 = time_ms(library_backward(knet, x9, g9, lane_grid_kernel), reps=3)
+    n9 = x9.shape[1]
+    ops_k6 = lane_grid_kernel._operands(knet, train=True)
+    kernels["K6"] = dict(
+        name="lane_grid_backward (lane-grid network backward, training "
+             "layout)", route="cuda",
+        source="neural_renderer_tpu_torch/csrc/lane_grid_backward.cu",
+        replaces="neural_renderer_tpu/ops/lane_grid_train_kernel.py:128",
+        max_abs_err=err6, ms=ms6, plain_ms=pms6,
+        ops=3 * 2 * macs * n9,
+        bytes=nbytes(x9, g9, ops_k6.w_hidden, ops_k6.w_out)
+        + 2 * nbytes(ops_k6.tables2d) + 4 * macs,
+        peak_ops=PEAK_BF16, library_ms=lib6)
+    log(f"[time K6] kernel {ms6:.4f} ms, twin {pms6:.4f} ms, library "
+        f"{lib6:.4f} ms, bound "
+        f"{3 * 2 * macs * n9 / PEAK_BF16 * 1e3:.4f} ms (operations)")
+    del got6, ref6, out9, twin9, kb
+
+    # ---- 10. training on the knot ---------------------------------------
+    with torch.no_grad():
+        b10 = nr_train.sample_segment_batch(kgen, *kmeshes, komin, kinv,
+                                            16384, kradius, 3,
+                                            global_row=krow)
+        l10, c10 = nr_train.shell_losses(
+            lane_grid_kernel.forward_train(knet, b10.inputs), b10)
+    log(f"[train knot] 48k-step weights on 16384 x 3 segments: total loss "
+        f"{l10.item()!r} (" + ", ".join(f"{k} {v.item():.5f}"
+                                        for k, v in c10.items()) + ")")
+    if not l10.item() < 0.03:
+        raise AssertionError("knot weights score a loss >= 0.03")
+    train_counters = {
+        "K1": trace_cluster.sweep_clusters_stream,
+        "K2": lane_grid_kernel.forward_lane,
+        "K5": trace_cluster.trace_clusters_stream,
+        "K6": ltk.backward_lane}
+    for f in train_counters.values():
+        f.launches = 0
+    ckpt_dir = os.path.join(ROOT, "comparison_output", "smoke_train",
+                            "knot_ckpt")
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, [
+        knot_cfg_path, "--steps", "100", "--batch-size", "16384",
+        "--segments-per-ray", "3", "--lr-schedule", "cosine",
+        "--log-every", "1", "--ckpt-dir", ckpt_dir],
+        keep=lambda ln: not re.match(r"step (\d+)/", ln) or
+        int(re.match(r"step (\d+)/", ln).group(1)) % 10 in (0, 1))
+    train_launches = {k: f.launches for k, f in train_counters.items()}
+    steps10 = re.findall(r"step (\d+)/100 loss=([0-9.]+).*\(([0-9.]+) "
+                         r"Msegments/s\)", text)
+    first, last = float(steps10[0][1]), float(steps10[-1][1])
+    log(f"[train knot 100 steps] {time.perf_counter() - t0:.2f} s, loss "
+        f"{first!r} -> {last!r}, {steps10[-1][2]} Msegments/s, launches "
+        f"{train_launches}")
+    if not (len(steps10) == 100 and last <= 0.5 * first):
+        raise AssertionError("training did not halve the loss in 100 steps")
+    for key, n in train_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{key} was never launched by training")
+    launches["K6"] = train_launches["K6"]
+    ckpt = re.search(r"final checkpoint: (\S+)", text).group(1)
+    if not Renderer(kscene, kcfg.neural_network,
+                    device=dev).load_weights_from_file(ckpt):
+        raise AssertionError("the trained checkpoint does not load")
+    text = run_evaluate(evaluate, [
+        knot_cfg_path, "--width", "192", "--height", "108",
+        "--total-samples", "8", "--ckpt", ckpt, "--output",
+        os.path.join(ROOT, "comparison_output", "smoke_train", "eval")])
+    psnr10, flip10 = parse_metrics(text)
+    log(f"[train knot] 100-step checkpoint through evaluate 192x108 x8: "
+        f"PSNR {psnr10!r} dB, FLIP {flip10!r}")
+
+    # ---- 11. timed training steps ----------------------------------------
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_frame
+    for scene_name in ("knot", "sphere"):
+        profile_torch_frame.train_step(scene_name, 262144, 3, dev)
+
     out = []
-    for key in ("K1", "K2", "K3", "K4", "K5"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
         k = kernels[key]
         t_ops = k.pop("ops") / k.pop("peak_ops")
         t_bytes = k.pop("bytes") / PEAK_BYTES
@@ -537,19 +676,71 @@ def main() -> int:
     return 0
 
 
-def run_evaluate(evaluate, argv):
-    """The port's evaluate.main(argv) with its output captured; logs it
-    without the progress-bar redraws and returns it."""
+def library_backward(net, x, g, lane_grid_kernel):
+    """The K6 yardstick: autograd of the bf16 torch.matmul chain (forward
+    and backward of the MLP) plus one index_add_ of the table gradient,
+    with the encode and the corner indices computed beforehand."""
+    import torch
+    from neural_renderer_tpu_torch.models import lane_grid, nbvh
+    cfg = net.config
+    with torch.no_grad():
+        enc = nbvh.encode_inputs(net, x)
+        feats = torch.nn.functional.pad(
+            enc, (0, cfg.mlp_width - enc.shape[1])).to(torch.bfloat16)
+        wts = [w.detach().to(torch.bfloat16)
+               for w in lane_grid_kernel.pack_lane_weights(net)]
+        n_entries = net.lane[0, 0, 0].numel()
+        flat, wcs = [], []
+        for p in range(cfg.point_count):
+            for level in range(cfg.n_levels):
+                corners = lane_grid.level_corners(
+                    x[3 * p:3 * p + 3], level, cfg.base_resolution,
+                    cfg.per_level_scale, n_entries)
+                base = (p * cfg.n_levels + level) * cfg.n_features
+                for f in range(cfg.n_features):
+                    for idx, wc in corners:
+                        flat.append((base + f) * n_entries + idx)
+                        wcs.append(wc)
+        flat = torch.stack(flat).reshape(-1)
+        wcs = torch.stack(wcs)                      # [P*L*F*8, N]
+        feature = torch.arange(wcs.shape[0], device=x.device) // 8
+        gb = g.t().to(torch.bfloat16)
+
+    def run():
+        h = feats.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in wts]
+        a = h
+        for w in ws[:-1]:
+            a = torch.nn.functional.leaky_relu(a @ w.t(), nbvh.LEAKY_SLOPE)
+        out = a @ ws[-1].t()
+        grads = torch.autograd.grad(out, [h, *ws], grad_outputs=gb)
+        d_enc = grads[0].float().t()                 # [128, N]
+        d_t = torch.zeros(net.lane.numel(), device=x.device)
+        d_t.index_add_(0, flat, (d_enc[feature] * wcs).reshape(-1))
+        return d_t, grads[1:]
+    return run
+
+
+def run_cli(main_fn, argv, keep=lambda line: True):
+    """main_fn(argv) with its output captured; logs the lines `keep`
+    accepts (progress-bar redraws split at carriage returns) and returns all
+    of it. Fails unless main_fn returns 0."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = evaluate.main(argv)
+        rc = main_fn(argv)
     text = buf.getvalue()
     for line in text.replace("\r", "\n").splitlines():
-        if line.strip() and " ETA " not in line:
+        if line.strip() and keep(line):
             log("  | " + line)
     if rc != 0:
-        raise AssertionError(f"evaluate {argv} returned {rc}")
+        raise AssertionError(f"{argv} returned {rc}")
     return text
+
+
+def run_evaluate(evaluate, argv):
+    """The port's evaluate.main(argv) through run_cli, without the progress
+    bar's redraws in the log."""
+    return run_cli(evaluate.main, argv, keep=lambda ln: " ETA " not in ln)
 
 
 def parse_metrics(text):

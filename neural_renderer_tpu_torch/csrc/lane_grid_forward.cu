@@ -19,27 +19,16 @@
 // Bound: operations, 67,584 multiply-adds per ray in the MLP. This version
 // runs them as FP32 FMAs (explicit __fmaf_rn; the file is compiled with
 // -fmad=false so the encode rounds op by op like the PyTorch twin).
-#include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "lane_grid.cuh"
 #include "mt.cuh"
 
-#define LG_WIDTH 128
-#define LG_OUT 16
 #define LG_THREADS 256
-#define LG_GROUP 128
 #define LG_SMEM_W (4 * LG_WIDTH * LG_WIDTH * 2)
 #define LG_SMEM_WOUT (LG_WIDTH * LG_OUT * 2)
 #define LG_SMEM_H (LG_WIDTH * LG_THREADS * 2)
 #define LG_SMEM (LG_SMEM_W + LG_SMEM_WOUT + LG_SMEM_H)
-
-__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits) {
-  return __uint_as_float(bits << 16);
-}
-
-__device__ __forceinline__ uint16_t f32_to_bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
 
 // Eight bf16 values of a 16-byte word (little-endian: element 0 in the low
 // half of .x) times hv, accumulated into acc[0..7].
@@ -100,30 +89,17 @@ lane_grid_forward_kernel(const float* __restrict__ x, int npad,
       const float py = x[(3 * p + 1) * (long long)npad + r];
       const float pz = x[(3 * p + 2) * (long long)npad + r];
       for (int level = 0; level < n_levels; ++level) {
-        const float sc = scales[level];
-        const float sx = px * sc + 0.5f;
-        const float sy = py * sc + 0.5f;
-        const float sz = pz * sc + 0.5f;
-        const float cx0 = floorf(sx), cy0 = floorf(sy), cz0 = floorf(sz);
-        const float wx = sx - cx0, wy = sy - cy0, wz = sz - cz0;
-        const int ix = (int)cx0, iy = (int)cy0, iz = (int)cz0;
+        uint32_t idx[8];
+        float wc[8];
+        lg_corners(px, py, pz, scales[level], n_entries, idx, wc);
         const long long base_row =
             (long long)((p * n_levels + level) * 4) * sublanes;
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const int dx = c & 1, dy = (c >> 1) & 1, dz = c >> 2;
-          const float wcx = dx ? wx : (1.0f - wx);
-          const float wcy = dy ? wy : (1.0f - wy);
-          const float wcz = dz ? wz : (1.0f - wz);
-          const float wc = wcx * wcy * wcz;
-          const uint32_t h = ((uint32_t)(ix + dx) * 1u) ^
-                             ((uint32_t)(iy + dy) * 2654435761u) ^
-                             ((uint32_t)(iz + dz) * 805459861u);
-          const uint32_t idx = h & (n_entries - 1u);
-          const uint32_t sub = idx >> sub_shift;
-          const uint32_t lane = idx & (LG_GROUP - 1);
-          const bool hi_half = (idx & LG_GROUP) != 0;
+          const uint32_t sub = idx[c] >> sub_shift;
+          const uint32_t lane = idx[c] & (LG_GROUP - 1);
+          const bool hi_half = (idx[c] & LG_GROUP) != 0;
 #pragma unroll
           for (int f = 0; f < 4; ++f) {
             const long long row = base_row + (long long)f * sublanes + sub;
@@ -134,7 +110,7 @@ lane_grid_forward_kernel(const float* __restrict__ x, int npad,
               val = hi_half ? __uint_as_float(u & 0xFFFF0000u)
                             : __uint_as_float(u << 16);
             }
-            acc[f] = acc[f] + val * wc;
+            acc[f] = acc[f] + val * wc[c];
           }
         }
 #pragma unroll
@@ -145,28 +121,8 @@ lane_grid_forward_kernel(const float* __restrict__ x, int npad,
     }
     {
       const long long d0 = (3 * n_points) * (long long)npad + r;
-      const float dxv = x[d0] * 2.0f - 1.0f;
-      const float dyv = x[d0 + npad] * 2.0f - 1.0f;
-      const float dzv = x[d0 + 2LL * npad] * 2.0f - 1.0f;
-      const float xy = dxv * dyv, xz = dxv * dzv, yz = dyv * dzv;
-      const float x2 = dxv * dxv, y2 = dyv * dyv, z2 = dzv * dzv;
       float shv[16];
-      shv[0] = 0.28209479177387814f;
-      shv[1] = -0.48860251190291987f * dyv;
-      shv[2] = 0.48860251190291987f * dzv;
-      shv[3] = -0.48860251190291987f * dxv;
-      shv[4] = 1.0925484305920792f * xy;
-      shv[5] = -1.0925484305920792f * yz;
-      shv[6] = 0.94617469575755997f * z2 - 0.31539156525251999f;
-      shv[7] = -1.0925484305920792f * xz;
-      shv[8] = 0.54627421529603959f * x2 - 0.54627421529603959f * y2;
-      shv[9] = 0.59004358992664352f * dyv * (-3.0f * x2 + y2);
-      shv[10] = 2.8906114426405538f * xy * dzv;
-      shv[11] = 0.45704579946446572f * dyv * (1.0f - 5.0f * z2);
-      shv[12] = 0.3731763325901154f * dzv * (5.0f * z2 - 3.0f);
-      shv[13] = 0.45704579946446572f * dxv * (1.0f - 5.0f * z2);
-      shv[14] = 1.4453057213202769f * dzv * (x2 - y2);
-      shv[15] = 0.59004358992664352f * dxv * (-x2 + 3.0f * y2);
+      lg_sh16(x[d0], x[d0 + npad], x[d0 + 2LL * npad], shv);
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         sh[(k + j) * LG_THREADS + tid] = f32_to_bf16_bits(shv[j]);

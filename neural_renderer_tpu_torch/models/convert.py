@@ -1,8 +1,10 @@
-"""Carry weights and meshes from the JAX package's numpy arrays.
+"""Carry weights and meshes from the JAX package's numpy arrays, and write
+weights back in the same `.npz` layout.
 
-Both functions take numpy arrays only, so a caller converts a JAX pytree
+The functions take numpy arrays only, so a caller converts a JAX pytree
 with `np.asarray` (or loads an `.npz` written from one) and this package
-never imports JAX.
+never imports JAX. The `.npz` layout is that of
+scripts/export_lane_ckpt_npz.py: `lane` and `mlp_<i>`, f32.
 """
 
 from __future__ import annotations
@@ -37,6 +39,24 @@ def load_params_npz(path: str) -> dict:
     with np.load(path) as z:
         n = sum(1 for k in z.files if k.startswith("mlp_"))
         return {"lane": z["lane"], "mlp": [z[f"mlp_{i}"] for i in range(n)]}
+
+
+def params_to_numpy(net: ShellNetwork) -> dict:
+    """The inverse of params_from_numpy: {"lane": [P, L, F, S, (2,) 128],
+    "mlp": [[out, in], ...]} as f32 numpy arrays on the host."""
+    return {"lane": net.lane.detach().cpu().numpy(),
+            "mlp": [w.detach().cpu().numpy() for w in net.mlp]}
+
+
+def save_params_npz(path: str, net: ShellNetwork) -> str:
+    """Write `net` as the `.npz` that load_params_npz reads (the layout of
+    scripts/export_lane_ckpt_npz.py). Returns the path."""
+    params = params_to_numpy(net)
+    arrays = {"lane": params["lane"]}
+    arrays.update({f"mlp_{i}": w for i, w in enumerate(params["mlp"])})
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    return path
 
 
 def mesh_from_numpy(tris_packed: np.ndarray, num_triangles: int,

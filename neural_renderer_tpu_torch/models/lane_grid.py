@@ -1,7 +1,8 @@
 """Lane-local multiresolution hash grid, forward only.
 
 Port of `neural_renderer_tpu/models/lane_grid.py`: `level_scale`,
-`hash_corner`, `init_lane_tables` and `lane_encode_features`. Each
+`hash_corner`, `init_lane_tables` and `lane_encode_features` (with
+`level_corners`, which the training backward's twin shares). Each
 (point, level, feature) owns a table of S x pack x 128 entries; the flat
 entry index is sub * (pack * 128) + half * 128 + lane, the row-major
 flatten of the trailing table axes. Hash: tcnn's coherent prime xor
@@ -48,6 +49,31 @@ def init_lane_tables(n_points: int, n_levels: int, n_features: int,
     return (t * 2e-4 - 1e-4).to(device)
 
 
+def level_corners(x, level: int, base_resolution: int,
+                  per_level_scale: float, n_entries: int):
+    """The 8 trilinear corners of points x [3, N] at one level: a list of
+    (table index [N] int64, weight [N] f32) in corner order dx + 2 dy +
+    4 dz."""
+    scale = torch.tensor(level_scale(level, base_resolution,
+                                     per_level_scale),
+                         dtype=torch.float32, device=x.device)
+    p = x * scale + 0.5
+    corner = torch.floor(p)
+    w = p - corner
+    c0 = corner.to(torch.int64)
+    out = []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                idx = hash_corner(c0[0] + dx, c0[1] + dy, c0[2] + dz,
+                                  n_entries)
+                wx = w[0] if dx else (1.0 - w[0])
+                wy = w[1] if dy else (1.0 - w[1])
+                wz = w[2] if dz else (1.0 - w[2])
+                out.append((idx, wx * wy * wz))
+    return out
+
+
 def lane_encode_point_features(tables_p, x, base_resolution: int,
                                per_level_scale: float):
     """Encode one point. tables_p: [L, F, S, (pack,) 128]; x: [3, N].
@@ -56,25 +82,12 @@ def lane_encode_point_features(tables_p, x, base_resolution: int,
     n_entries = math.prod(tables_p.shape[2:])
     outs = []
     for level in range(n_levels):
-        scale = torch.tensor(level_scale(level, base_resolution,
-                                         per_level_scale),
-                             dtype=torch.float32, device=x.device)
-        p = x * scale + 0.5
-        corner = torch.floor(p)
-        w = p - corner
-        c0 = corner.to(torch.int64)
         table_fe = tables_p[level].reshape(n_features, n_entries)
         acc = None
-        for dz in (0, 1):
-            for dy in (0, 1):
-                for dx in (0, 1):
-                    idx = hash_corner(c0[0] + dx, c0[1] + dy, c0[2] + dz,
-                                      n_entries)
-                    wx = w[0] if dx else (1.0 - w[0])
-                    wy = w[1] if dy else (1.0 - w[1])
-                    wz = w[2] if dz else (1.0 - w[2])
-                    term = table_fe[:, idx] * (wx * wy * wz)[None, :]
-                    acc = term if acc is None else acc + term
+        for idx, wc in level_corners(x, level, base_resolution,
+                                     per_level_scale, n_entries):
+            term = table_fe[:, idx] * wc[None, :]
+            acc = term if acc is None else acc + term
         outs.extend(acc[f] for f in range(n_features))
     return outs
 

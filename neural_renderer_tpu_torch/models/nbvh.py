@@ -11,6 +11,12 @@ Port of `neural_renderer_tpu/models/nbvh.py`: `NbvhConfig`, `init_params`,
      (0 presence logit, 1 distance, 2:5 normal, 5:8 color).
 
 The tcnn-layout grid and the flat FP16 blob IO are not ported yet.
+
+Rendering runs without autograd: the parameters are built with
+`requires_grad=False`, and the trainer (train/trainer.py) switches them on
+with `net.requires_grad_(True)`; its gradients come from
+ops/lane_grid_train_kernel.py::apply_train, not from autograd through
+`apply`.
 """
 
 from __future__ import annotations
@@ -43,6 +49,16 @@ class NbvhConfig:
     lane_sublanes: int = 8
     lane_entry_pack: int = 2
 
+    @staticmethod
+    def from_network_config(nn_config) -> "NbvhConfig":
+        """The network of a scene config's `neural_network` block
+        (config.py::NeuralNetworkConfig)."""
+        return NbvhConfig(log2_hashmap_size=nn_config.log2_hashmap_size,
+                          base_resolution=nn_config.base_resolution,
+                          grid_type=nn_config.grid_type,
+                          lane_sublanes=nn_config.lane_sublanes,
+                          lane_entry_pack=nn_config.lane_entry_pack)
+
     @property
     def input_dims(self) -> int:
         return self.point_count * 3 + 3
@@ -53,7 +69,8 @@ class NbvhConfig:
 
 
 class ShellNetwork(nn.Module):
-    """Lane tables + MLP weights of one shell network."""
+    """Lane tables + MLP weights of one shell network. Frozen when built;
+    `requires_grad_(True)` makes it trainable."""
 
     def __init__(self, config: NbvhConfig, lane: torch.Tensor,
                  mlp: list[torch.Tensor]):

@@ -31,6 +31,7 @@ SOURCES = {
     "lane_grid_forward": "lane_grid_forward.cu",
     "trace_cluster_stream": "trace_cluster_stream.cu",
     "sweep_dense": "sweep_dense.cu",
+    "lane_grid_backward": "lane_grid_backward.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op by op

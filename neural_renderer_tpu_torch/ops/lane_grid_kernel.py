@@ -8,6 +8,10 @@ blocks without an active ray writing zeros.
 
 Tables at entry_pack=2 are packed as on the TPU: two bf16 entries per 32-bit
 word, half 0 in the low 16 bits; bit 7 of the hash index selects the half.
+The training forward (`forward_train`, from
+`neural_renderer_tpu/ops/lane_grid_train_kernel.py::_train_tables2d` and
+`_make_apply_train.fwd_only`) runs the same kernel on the f32 master tables
+at entry_pack 1, S * pack rows per table, every block live.
 
 Kernel `csrc/lane_grid_forward.cu` replaces `_forward_kernel`. Persistent
 blocks of 256 threads (two 128-ray groups, one thread per ray) keep the four
@@ -97,21 +101,40 @@ def forward_lane_twin(net: nbvh.ShellNetwork, x_pad, block_mask):
     return torch.where(live[None, :], out, torch.zeros_like(out))
 
 
+def train_tables2d(tables):
+    """Master tables -> ([P*L*F*rows, 128] f32 rows, rows): the training
+    layout, rows = S * pack. The pack axis folds into the row index (entry
+    = row * 128 + lane, the row-major flatten of the trailing axes), with no
+    bf16 packing, so gradients are taken against the f32 masters. A view of
+    the masters."""
+    lanes = tables.shape[-1]
+    rows = tables[0, 0, 0].numel() // lanes
+    return tables.reshape(-1, lanes), rows
+
+
 class _KernelOperands:
     """Packed tables/weights/scales for one network, cached on the module
-    and rebuilt when a parameter changes (tensor version counters)."""
+    and rebuilt when a parameter changes (tensor version counters, which
+    the optimizer's in-place steps advance). `train`: the training layout
+    (f32 tables at entry_pack 1, `train_tables2d`) instead of the inference
+    packing."""
 
-    def __init__(self, net: nbvh.ShellNetwork):
+    def __init__(self, net: nbvh.ShellNetwork, train: bool):
         cfg = net.config
         self.key = _params_key(net)
-        self.tables2d, self.entry_pack = pack_lane_tables(net.lane)
-        self.tables2d = self.tables2d.contiguous()
-        self.sublanes = net.lane.shape[3]
-        w = pack_lane_weights(net)
-        # [in, out] row-major so a thread reads 8 consecutive outputs of one
-        # input with a single 16-byte shared-memory load.
-        self.w_hidden = torch.stack([m.t() for m in w[:-1]]).contiguous()
-        self.w_out = w[-1].t().contiguous()
+        with torch.no_grad():
+            if train:
+                self.tables2d, self.sublanes = train_tables2d(net.lane)
+                self.entry_pack = 1
+            else:
+                self.tables2d, self.entry_pack = pack_lane_tables(net.lane)
+                self.sublanes = net.lane.shape[3]
+            self.tables2d = self.tables2d.detach().contiguous()
+            w = pack_lane_weights(net)
+            # [in, out] row-major so a thread reads 8 consecutive outputs of
+            # one input with a single 16-byte shared-memory load.
+            self.w_hidden = torch.stack([m.t() for m in w[:-1]]).contiguous()
+            self.w_out = w[-1].t().contiguous()
         self.scales = torch.tensor(
             [lane_grid.level_scale(lv, cfg.base_resolution,
                                    cfg.per_level_scale)
@@ -123,12 +146,22 @@ def _params_key(net):
     return tuple((p.data_ptr(), p._version) for p in net.parameters())
 
 
-def _operands(net: nbvh.ShellNetwork) -> _KernelOperands:
-    ops = getattr(net, "_kernel_operands", None)
+def _operands(net: nbvh.ShellNetwork, train: bool = False) -> _KernelOperands:
+    attr = "_train_operands" if train else "_kernel_operands"
+    ops = getattr(net, attr, None)
     if ops is None or ops.key != _params_key(net):
-        ops = _KernelOperands(net)
-        net._kernel_operands = ops
+        ops = _KernelOperands(net, train)
+        setattr(net, attr, ops)
     return ops
+
+
+def check_kernel_config(cfg: nbvh.NbvhConfig, what: str):
+    """Raise for a network the lane-grid kernels were not written for."""
+    if (cfg.n_features != 4 or cfg.mlp_width != _WIDTH
+            or cfg.mlp_hidden_layers != 4 or cfg.input_dims != 12
+            or cfg.padded_output_dims != _OUT_DIMS
+            or cfg.encoded_dims > _WIDTH or cfg.n_levels > 16):
+        raise ValueError(f"{what} kernel does not take {cfg}")
 
 
 def forward_lane(net: nbvh.ShellNetwork, inputs, active=None):
@@ -136,25 +169,44 @@ def forward_lane(net: nbvh.ShellNetwork, inputs, active=None):
     [padded_output_dims, N] f32. `active` ([N] bool, optional): 128-ray
     blocks with no active ray output zeros. CPU tensors run the twin; CUDA
     tensors launch csrc/lane_grid_forward.cu."""
-    cfg = net.config
     n = inputs.shape[1]
     npad = -(-max(n, LANES) // LANES) * LANES
     x = torch.nn.functional.pad(inputs.to(torch.float32), (0, npad - n))
     mask = _block_mask(active, npad, inputs.device)
     if not inputs.is_cuda:
         return forward_lane_twin(net, x, mask)[:, :n]
-    if (cfg.n_features != 4 or cfg.mlp_width != _WIDTH
-            or cfg.mlp_hidden_layers != 4 or cfg.input_dims != 12
-            or cfg.padded_output_dims != _OUT_DIMS
-            or cfg.encoded_dims > _WIDTH or cfg.n_levels > 16):
-        raise ValueError(f"lane_grid_forward kernel does not take {cfg}")
+    return _launch(net, _operands(net), x, mask)[:, :n]
+
+
+def forward_train(net: nbvh.ShellNetwork, inputs):
+    """The training forward (K2 in training layout): inputs [12, N] ->
+    [padded_output_dims, N] f32 from the f32 master tables at entry_pack 1
+    (S * pack rows per table), every block live. CPU tensors run the twin
+    (`nbvh.encode_inputs` + `nbvh.mlp_forward` on the masters); CUDA tensors
+    launch csrc/lane_grid_forward.cu. No autograd: see
+    ops/lane_grid_train_kernel.py::apply_train."""
+    n = inputs.shape[1]
+    if not inputs.is_cuda:
+        with torch.no_grad():
+            return nbvh.mlp_forward(list(net.mlp),
+                                    nbvh.encode_inputs(net, inputs))
+    npad = -(-max(n, LANES) // LANES) * LANES
+    x = torch.nn.functional.pad(inputs.to(torch.float32), (0, npad - n))
+    mask = _block_mask(None, npad, inputs.device)
+    return _launch(net, _operands(net, train=True), x, mask)[:, :n]
+
+
+def _launch(net, ops: _KernelOperands, x, mask):
+    """One launch of csrc/lane_grid_forward.cu on padded x [12, Npad]."""
+    cfg = net.config
+    check_kernel_config(cfg, "lane_grid_forward")
     if not net.lane.is_cuda:
         raise ValueError("forward_lane: network weights must be on the GPU")
-    ops = _operands(net)
     x = x.contiguous()
+    npad = x.shape[1]
     lib = cuda_build.load("lane_grid_forward")
     out = torch.empty((_OUT_DIMS, npad), dtype=torch.float32,
-                      device=inputs.device)
+                      device=x.device)
     p = cuda_build.ptr
     rc = lib.lane_grid_forward(
         p(x), ctypes.c_int(npad), p(mask), p(ops.tables2d),
@@ -164,7 +216,7 @@ def forward_lane(net: nbvh.ShellNetwork, inputs, active=None):
         ctypes.c_int(cfg.encoded_dims), p(out), cuda_build.stream_of(x))
     cuda_build.check(lib, rc, "lane_grid_forward")
     forward_lane.launches += 1
-    return out[:, :n]
+    return out
 
 
 forward_lane.launches = 0

@@ -116,15 +116,18 @@ def _pad_cols(x, width):
 
 
 def trace_mesh(mesh, origins, dirs, mode: int = ANY,
-               active=None) -> TraceResult:
+               active=None, presorted: bool = False) -> TraceResult:
     """Closest-hit trace of [3, N] rays against one mesh (MeshTensors).
-    `active` ([N] bool) masks rays out; the smallest triangle id wins a tie."""
+    `active` ([N] bool) masks rays out; the smallest triangle id wins a tie.
+    `presorted`: the caller already put the rays in `_ray_sort_order`, so
+    the clustered branch skips its own sort and both permutes (the training
+    sampler sorts its batch once for all of its traces)."""
     n = origins.shape[1]
     if mesh.is_empty:
         return _miss(n, origins.device)
     if mesh.num_triangles <= _CLUSTERED_TRACE_MIN_TRIS:
         return _trace_dense(mesh, origins, dirs, mode, active)
-    return _trace_two_level(mesh, origins, dirs, mode, active)
+    return _trace_two_level(mesh, origins, dirs, mode, active, presorted)
 
 
 def dense_trace_operands(mesh, origins, dirs, active=None):
@@ -333,14 +336,19 @@ def _ray_sort_order(origins, dirs, active=None):
     return torch.argsort(key, stable=True)
 
 
-def _trace_two_level(mesh, origins, dirs, mode: int, active) -> TraceResult:
+def _trace_two_level(mesh, origins, dirs, mode: int, active,
+                     presorted: bool = False) -> TraceResult:
     """Octant/morton-sorted rays -> clustered trace in chunks of at most
     _CHUNK_RAYS sorted rays (bounded worklist builds; the sort keeps each
-    chunk spatially coherent) -> un-sort."""
+    chunk spatially coherent) -> un-sort. With `presorted` the rays are
+    traced in the caller's order and the result stays in it."""
     n = origins.shape[1]
-    order = _ray_sort_order(origins, dirs, active)
-    o_s, d_s = origins[:, order], dirs[:, order]
-    act_s = active[order] if active is not None else None
+    if presorted:
+        o_s, d_s, act_s = origins, dirs, active
+    else:
+        order = _ray_sort_order(origins, dirs, active)
+        o_s, d_s = origins[:, order], dirs[:, order]
+        act_s = active[order] if active is not None else None
     parts = []
     for s0 in range(0, n, _CHUNK_RAYS):
         sl = slice(s0, s0 + _CHUNK_RAYS)
@@ -351,6 +359,9 @@ def _trace_two_level(mesh, origins, dirs, mode: int, active) -> TraceResult:
     for f in range(5):
         col = parts[0][f] if len(parts) == 1 else \
             torch.cat([p[f] for p in parts])
+        if presorted:
+            out.append(col)
+            continue
         full = torch.empty_like(col)
         full[order] = col
         out.append(full)

@@ -66,12 +66,7 @@ class Renderer:
                 "PyTorch twins on the CPU")
         self.scene = scene
         nn_config = nn_config or NeuralNetworkConfig()
-        self.net_config = nbvh.NbvhConfig(
-            log2_hashmap_size=nn_config.log2_hashmap_size,
-            base_resolution=nn_config.base_resolution,
-            grid_type=nn_config.grid_type,
-            lane_sublanes=nn_config.lane_sublanes,
-            lane_entry_pack=nn_config.lane_entry_pack)
+        self.net_config = nbvh.NbvhConfig.from_network_config(nn_config)
         self.net = None  # loaded by load_weights_from_file / set_network
 
         self.width = 0

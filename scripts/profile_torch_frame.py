@@ -2,6 +2,7 @@
 
     python scripts/profile_torch_frame.py [--weights trained|seeded]
     python scripts/profile_torch_frame.py --knot gt|neural [--spp 8]
+    python scripts/profile_torch_frame.py --train knot|sphere [--batch N]
 
 Default: the chip_smoke.py sphere workload (shelled sphere, lane S=16,
 1920x1080, 1 spp, 3 bounces): two warm-up frames, then three frames under
@@ -11,7 +12,13 @@ of --spp samples per pixel through the Renderer: one warm-up batch, then
 --frames batches under the profiler. Prints the wall time per frame, the
 summed device time of all kernels and the device's idle share over the
 window, and the kernels with the largest device time (the port's CUDA
-kernels by name, the rest PyTorch's own). Needs a CUDA device; no JAX.
+kernels by name, the rest PyTorch's own). With --train: training steps of
+`cli/train.py`'s step function from seeded weights on configs/knot/
+knot_lane.json (3 segments per ray) or configs/sphere/sphere_lane.json (1),
+--batch segments per step: one warm-up step, --frames steps timed by stage
+without the profiler (sampler, then gradient and update, each ended by a
+synchronise), then --frames steps under the profiler. Needs a CUDA device;
+no JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ def main():
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--knot", choices=("gt", "neural"), default=None)
     ap.add_argument("--spp", type=int, default=8)
+    ap.add_argument("--train", choices=("knot", "sphere"), default=None)
+    ap.add_argument("--batch", type=int, default=262144)
     args = ap.parse_args()
 
     import torch
@@ -48,6 +57,13 @@ def main():
 
     dev = torch.device("cuda")
     w, h = 1920, 1080
+    if args.train:
+        step, segments, _ = train_step(args.train, args.batch, args.frames,
+                                       dev)
+        report(profile_frames(step, 1, args.frames), args.frames,
+               f"train {args.train}, {args.batch} segments x "
+               f"{segments} per ray per step")
+        return
     if args.knot:
         render = knot_pass(args.knot, args.spp, w, h, dev)
         report(profile_frames(render, 1, args.frames), args.frames,
@@ -105,6 +121,66 @@ def knot_pass(which, spp, w, h, dev):
     renderer.set_bounce_count(cfg.rendering.bounce_count)
     renderer.set_use_neural_query(which == "neural")
     return lambda: renderer.render_accumulate(pos, spp, batch_spp=spp)
+
+
+def train_step(scene_name, batch, frames, dev):
+    """(`step()` running one training step as cli/train.py does, segments
+    per ray, timings). Before returning, runs one warm-up step and times
+    `frames` steps by stage: the sampler and the gradient + update, each
+    ended by a synchronise; timings = {"msegments_s", "sample_ms",
+    "grad_ms"} per step. chip_smoke.py phase 11 calls this."""
+    import torch
+    from neural_renderer_tpu_torch import config as nr_config
+    from neural_renderer_tpu_torch.models import nbvh
+    from neural_renderer_tpu_torch.scene.scene import Scene
+    from neural_renderer_tpu_torch.train import (
+        TrainConfig, init_train_state, make_train_step_on_batch,
+        sample_segment_batch, scene_global_row, segment_domain)
+    name = {"knot": "knot_lane.json", "sphere": "sphere_lane.json"}
+    cfg = nr_config.load_config(os.path.join(ROOT, "configs", scene_name,
+                                             name[scene_name]))
+    scene = Scene.from_config(cfg)
+    net_config = nbvh.NbvhConfig.from_network_config(cfg.neural_network)
+    segments = 3 if scene_name == "knot" else 1
+    tcfg = TrainConfig(batch_size=batch, steps=1000, lr_schedule="cosine",
+                       segments_per_ray=segments)
+    meshes = [getattr(scene, m).to_tensors(dev) for m in
+              ("original_mesh", "outer_shell", "inner_shell")]
+    omin, inv, radius = segment_domain(scene, dev)
+    row = scene_global_row(scene, dev)
+    state = init_train_state(tcfg, net_config, dev)
+    grad_step = make_train_step_on_batch(tcfg, net_config, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def sample():
+        with torch.no_grad():
+            return sample_segment_batch(gen, *meshes, omin, inv, batch,
+                                        radius, segments, global_row=row)
+
+    def step():
+        grad_step(state, sample())
+
+    step()
+    torch.cuda.synchronize()
+    t_sample = t_grad = 0.0
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        b = sample()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = grad_step(state, b)
+        torch.cuda.synchronize()
+        t_grad += time.perf_counter() - t1
+        t_sample += t1 - t0
+    timings = {"msegments_s": batch * frames / (t_sample + t_grad) / 1e6,
+               "sample_ms": t_sample * 1e3 / frames,
+               "grad_ms": t_grad * 1e3 / frames}
+    print(f"train {scene_name}: {frames} steps of {batch} segments x "
+          f"{segments} per ray, sampler {timings['sample_ms']:.3f} ms/step, "
+          f"gradient + update {timings['grad_ms']:.3f} ms/step, "
+          f"{timings['msegments_s']!r} Msegments/s (stages synchronised), "
+          f"loss {float(m['total']):.4f}", flush=True)
+    return step, segments, timings
 
 
 def profile_frames(render, warmup, frames):

@@ -9,7 +9,9 @@ Every test needs a CUDA device and skips without one. Tolerances: the four
 trace and sweep kernels are built with -fmad=false and evaluate the twin's
 expressions in the twin's order, so they are held bit-exact; the network
 kernel sums its bf16 products in another order than the twin's f32 matmul,
-so it is held to max|d| / max|twin| < 2e-2; whole frames to
+so it is held to max|d| / max|twin| < 2e-2; the training backward kernel
+adds its f32 sums by atomics in no fixed order, so each gradient is held to
+1e-3 of the twin's largest |grad|; whole frames to
 tests/test_frame_interpret.py's tolerance.
 """
 
@@ -18,14 +20,19 @@ import pytest
 import torch
 
 from neural_renderer_tpu_torch.models import nbvh
-from neural_renderer_tpu_torch.ops import (lane_grid_kernel, trace_cluster,
-                                           trace_pallas, traversal)
+from neural_renderer_tpu_torch.ops import (lane_grid_kernel,
+                                           lane_grid_train_kernel,
+                                           trace_cluster, trace_pallas,
+                                           traversal)
 from neural_renderer_tpu_torch.render import neural_frame
 from neural_renderer_tpu_torch.render.neural_march import NeuralContext
 from neural_renderer_tpu_torch.render.params import RenderParams
 from neural_renderer_tpu_torch.scene.envmap import EnvironmentTensors
 from neural_renderer_tpu_torch.scene.materials import Material
 from neural_renderer_tpu_torch.scene.mesh import outward_sphere
+from neural_renderer_tpu_torch.scene.scene import Scene
+from neural_renderer_tpu_torch.train import (TrainConfig, init_train_state,
+                                             make_train_step, segment_domain)
 
 pytestmark = pytest.mark.cuda
 
@@ -152,6 +159,56 @@ def test_network_kernel_matches_twin(cuda, entry_pack):
     assert (out[:, 128:256] == 0).all()
     rel = (out - twin).abs().max() / twin.abs().max()
     assert rel.item() < 2e-2
+
+
+def test_train_kernels_match_twins(cuda):
+    """The training forward (K2 at entry_pack 1, 32 rows) within 2e-2 of
+    its twin, and K6 against backward_twin at the shipped width (S=16,
+    pack 2) on 5,000 rays (not a whole number of the kernel's 32-ray
+    slices): every gradient within 1e-3 of the twin's largest |grad|."""
+    cfg = nbvh.NbvhConfig(lane_sublanes=16, lane_entry_pack=2)
+    net = nbvh.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    with torch.no_grad():
+        net.lane.mul_(1e3)
+    g = torch.Generator().manual_seed(4)
+    n = 5000
+    x = torch.rand((12, n), generator=g).to(cuda)
+    cot = torch.randn((16, n), generator=g).to(cuda)
+    out = lane_grid_kernel.forward_train(net, x)
+    twin = nbvh.mlp_forward(list(net.mlp), nbvh.encode_inputs(net, x))
+    assert (out - twin).abs().max() / twin.abs().max() < 2e-2
+    before = lane_grid_train_kernel.backward_lane.launches
+    got = lane_grid_train_kernel.backward_lane(net, x, cot)
+    assert lane_grid_train_kernel.backward_lane.launches == before + 1
+    ref = lane_grid_train_kernel.backward_twin(net, x, cot)
+    for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]):
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+def test_train_steps_on_card(cuda):
+    """Three steps of the trainer on small shells launch K2 and K6 and keep
+    the loss finite."""
+    scene = Scene(original_mesh=outward_sphere(16, 32, 1.0),
+                  inner_shell=outward_sphere(16, 32, 0.8),
+                  outer_shell=outward_sphere(16, 32, 1.2))
+    cfg = nbvh.NbvhConfig(lane_sublanes=16)
+    tcfg = TrainConfig(batch_size=4096, steps=3, segments_per_ray=2,
+                       fused_kernel="on")
+    omin, inv, radius = segment_domain(scene, cuda)
+    state = init_train_state(tcfg, cfg, cuda)
+    step = make_train_step(tcfg, cfg, *(getattr(scene, m).to_tensors(cuda)
+                                        for m in ("original_mesh",
+                                                  "outer_shell",
+                                                  "inner_shell")),
+                           omin, inv, radius, device=cuda)
+    k2 = lane_grid_kernel.forward_lane.launches
+    k6 = lane_grid_train_kernel.backward_lane.launches
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    losses = [float(step(state, gen)[1]["total"]) for _ in range(3)]
+    assert np.isfinite(losses).all() and state.step == 3
+    assert lane_grid_kernel.forward_lane.launches == k2 + 3
+    assert lane_grid_train_kernel.backward_lane.launches == k6 + 3
 
 
 def test_frame_matches_twin_frame(cuda):

@@ -174,17 +174,21 @@ def test_sample_bounce_directions(first_bounce):
 
 
 def test_import_without_jax():
-    """The port imports with JAX, the JAX package, imageio, matplotlib and
-    orbax made unimportable (sys.modules[name] = None), every module of the
-    package included."""
+    """The port imports with JAX, the JAX package, imageio, matplotlib,
+    orbax and optax made unimportable (sys.modules[name] = None), every
+    module of the package included (train and cli.train among them)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'neural_renderer_tpu', 'imageio', 'matplotlib',"
-        " 'orbax'):\n"
+        " 'orbax', 'optax'):\n"
         "    sys.modules[name] = None\n"
         "import neural_renderer_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, p.__name__ + '.')]\n"
+        "assert {p.__name__ + '.train', p.__name__ + '.cli.train'} <= "
+        "set(names)\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
