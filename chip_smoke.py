@@ -8,8 +8,11 @@ the shelled-sphere scene (inner/outer UV-sphere shells of 2,304 triangles
 each, lane grid S=16, entry_pack=2; the trained sphere weights from
 configs/sphere/lane16_step24000.npz and seeded ones), the `evaluate` app on
 the knot scene (configs/knot/knot_lane.json: a 65,536-triangle ground-truth
-mesh, shells of 9,216 triangles each, the trained 48k-step weights), and a
-small-shell scene. Phases, each failing the run:
+mesh, shells of 9,216 triangles each, the trained 48k-step weights), a
+small-shell scene, training on the knot, and the reference-format sphere
+scene (configs/sphere/sphere.json: the tcnn-layout network with the flat
+FP16 weights.bin, a 9,216-triangle ground-truth mesh): its `evaluate` and
+its training. Phases, each failing the run:
 
   1. build every CUDA kernel of the path from neural_renderer_tpu_torch/csrc
      (one nvcc per source, in parallel);
@@ -52,7 +55,24 @@ small-shell scene. Phases, each failing the run:
      must launch, and the checkpoint must load in the Renderer and render
      through `evaluate`;
  11. time training steps (Msegments/s, synchronised, after a warm-up step)
-     at 262,144 segments: the knot at 3 per ray, the sphere at 1.
+     at 262,144 segments: the knot at 3 per ray, the sphere at 1;
+ 12. hold the fused MLP kernel of tcnn-layout networks (K7) against its
+     twin, every output within 2e-2 of the largest, on 131,072 segments of
+     the first march iteration of the sphere.json 1080p neural frame with
+     the weights.bin weights; time kernel, twin and a library version; then
+     at phase 14's launch shapes, the first 2^21-row chunk and the shorter
+     last chunk of the 1080p x 8 march's first iteration;
+ 13. run `evaluate` on sphere.json at 480x270 with the config's 64 samples
+     and hold it to the JAX package's gate (PSNR >= 45.5 dB, mean FLIP <=
+     0.018, tests/test_golden.py:101-125);
+ 14. run it at 1920x1080 with 8 samples in one batch, every launch counter
+     set to 0 first: K7 must launch in the neural pass;
+ 15. load weights.bin and write it back with save_flat_blob: the bytes
+     must equal the file's;
+ 16. train 100 seeded steps of sphere.json through `cli/train.py` (16,384
+     segments x 1, cosine schedule): the loss must at least halve, and the
+     exported flat FP16 blob (`--out`) must load in the Renderer and render
+     through `evaluate`.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -123,7 +143,8 @@ def main() -> int:
     from neural_renderer_tpu_torch.cli import evaluate
     from neural_renderer_tpu_torch.cli import train as train_cli
     from neural_renderer_tpu_torch.models import convert, nbvh
-    from neural_renderer_tpu_torch.ops import (cuda_build, lane_grid_kernel,
+    from neural_renderer_tpu_torch.ops import (cuda_build, fused_network,
+                                               lane_grid_kernel,
                                                lane_grid_train_kernel,
                                                trace_cluster, trace_pallas,
                                                traversal)
@@ -301,8 +322,9 @@ def main() -> int:
     lib2 = time_ms(matmul_chain)
     live2 = int(mask2.sum().item()) * 128
     ops_k2 = lane_grid_kernel._operands(net)
-    macs = (cfg.mlp_hidden_layers * cfg.mlp_width * cfg.mlp_width
-            + cfg.padded_output_dims * cfg.mlp_width)
+    # Multiply-adds per row of the MLP, layer 0 at its real inputs: the
+    # zero padding to 128 is the kernels' layout, not the function's work.
+    macs = cfg.mlp_n_params
     kernels["K2"] = dict(
         name="lane_grid_forward (fused lane-grid network)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/lane_grid_forward.cu",
@@ -656,8 +678,181 @@ def main() -> int:
     for scene_name in ("knot", "sphere"):
         profile_torch_frame.train_step(scene_name, 262144, 3, dev)
 
+    # ---- 12. K7 on the sphere.json network's segments ---------------------
+    fm = fused_network
+    sph_cfg_path = os.path.join(ROOT, "configs", "sphere", "sphere.json")
+    scfg = nr_config.load_config(sph_cfg_path)
+    srend = Renderer(Scene.from_config(scfg), scfg.neural_network,
+                     device=dev)
+    if not srend.load_weights_from_file(scfg.checkpoint_path):
+        raise AssertionError("configs/sphere/weights.bin does not load")
+    snet = srend.net
+    spos, syaw, spitch = nr_config.matrix_to_camera_state(scfg.camera.matrix)
+    srend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
+        syaw, spitch, scfg.camera.yfov)))
+    srend.resize(W, H)
+    srend.set_bounce_count(scfg.rendering.bounce_count)
+    sparams = srend._build_params(spos * scfg.original_mesh.scale, 0)
+    sctx = NeuralContext(srend._mesh_tensors("outer_shell"),
+                         srend._mesh_tensors("inner_shell"), snet)
+    _, _, _, sorig, sdirs = pt.primary_rays(sparams)
+    sentry, sact, _, ssw = _camera_fwd2_entry(sctx, sorig, sdirs)
+    s_in = segment_inputs(sctx, sparams, sdirs, sentry, sact, sw=ssw)[0]
+    live = torch.nonzero(sact).squeeze(1)
+    first = max(0, live.numel() // 2 - SLICE // 2)
+    x12 = s_in[:, live[first:first + SLICE]].contiguous()
+    if x12.shape[1] != SLICE:
+        raise AssertionError(f"only {live.numel()} live camera segments")
+    rows12 = fm.pack_input(nbvh.encode_inputs(snet, x12))
+    ker7 = fm.fused_mlp(snet, rows12)
+    twin7 = fm.apply_fused_twin(snet, rows12)
+    torch.cuda.synchronize()
+    d7 = (ker7 - twin7).abs()
+    top7 = twin7.abs().max().item()
+    err7 = d7.max().item()
+    share7 = (d7 > 1e-5 * top7).any(dim=0).float().mean().item()
+    log(f"[K7 sphere.json march iteration 1] rows {SLICE} (of {live.numel()}"
+        f" live) max|kernel - twin| {err7!r} relative {err7 / top7!r}, share"
+        f" of rows beyond 1e-5 x max {share7!r}")
+    if not err7 < 2e-2 * top7:
+        raise AssertionError(f"K7: relative error {err7 / top7} >= 2e-2")
+    # Kernel and library chain are timed on the same packed bf16 weights.
+    w7h, w7o = fm.pack_weights(snet)
+    ms7 = time_ms(lambda: fm.launch(rows12, w7h, w7o))
+    pms7 = time_ms(lambda: fm.apply_fused_twin(snet, rows12), reps=3)
+
+    def chain7():
+        h = rows12
+        for w in w7h:
+            h = torch.nn.functional.leaky_relu(torch.matmul(h, w.t()),
+                                               nbvh.LEAKY_SLOPE)
+        return torch.matmul(h, w7o.t())
+
+    lib7 = time_ms(chain7)
+    del s_in, sentry, sact, ssw, sorig, sdirs, ker7, twin7, d7
+
+    # The launch shapes of phase 14's 1080p x 8 pass: its march's iteration
+    # 1 runs every ray of the batch, ENC_CHUNK rows a launch plus a tail.
+    srend.set_samples_per_pixel(8)
+    p8 = srend._build_params(spos * scfg.original_mesh.scale, 0)
+    _, _, _, o8, d8 = pt.primary_rays(p8)
+    e8, a8, _, sw8 = _camera_fwd2_entry(sctx, o8, d8)
+    x8 = segment_inputs(sctx, p8, d8, e8, a8, sw=sw8)[0]
+    del o8, d8, e8, a8, sw8
+    n8 = x8.shape[1]
+    tail8 = n8 - (n8 - 1) // nbvh.ENC_CHUNK * nbvh.ENC_CHUNK
+    for label, lo, hi in (("first chunk", 0, nbvh.ENC_CHUNK),
+                          ("last chunk", n8 - tail8, n8)):
+        rows = fm.pack_input(nbvh.encode_inputs(snet, x8[:, lo:hi]))
+        k_out = fm.fused_mlp(snet, rows)
+        t_out = fm.apply_fused_twin(snet, rows)
+        d = (k_out - t_out).abs()
+        top = t_out.abs().max().item()
+        err = d.max().item()
+        share = (d > 1e-5 * top).any(dim=0).float().mean().item()
+        log(f"[K7 sphere.json {W}x{H} x8 march iteration 1, {label}] rows "
+            f"{hi - lo} (of {n8}) max|kernel - twin| {err!r} relative "
+            f"{err / top!r}, share of rows beyond 1e-5 x max {share!r}")
+        if not err < 2e-2 * top:
+            raise AssertionError(f"K7 {label}: relative error {err / top} "
+                                 ">= 2e-2")
+        err7 = max(err7, err)
+        del rows, k_out, t_out, d
+    del x8
+    macs7 = snet.config.mlp_n_params
+    kernels["K7"] = dict(
+        name="fused_mlp (tcnn-layout fused MLP)", route="cuda",
+        source="neural_renderer_tpu_torch/csrc/fused_mlp.cu",
+        replaces="neural_renderer_tpu/ops/fused_network.py:41",
+        max_abs_err=err7, ms=ms7, plain_ms=pms7, ops=2 * macs7 * SLICE,
+        bytes=nbytes(rows12, w7h, w7o) + 16 * 4 * SLICE,
+        peak_ops=PEAK_BF16, library_ms=lib7)
+    log(f"[time K7] kernel {ms7:.4f} ms, twin {pms7:.4f} ms, library "
+        f"{lib7:.4f} ms, bound {2 * macs7 * SLICE / PEAK_BF16 * 1e3:.4f} ms "
+        "(operations)")
+    del rows12
+
+    # ---- 13. evaluate on sphere.json -------------------------------------
+    sout = os.path.join(ROOT, "comparison_output", "smoke_sphere")
+    text = run_evaluate(evaluate, [sph_cfg_path, "--width", "480",
+                                   "--height", "270", "--output", sout])
+    psnr13, flip13 = parse_metrics(text)
+    log(f"[evaluate sphere.json 480x270 x{scfg.rendering.total_samples}] "
+        f"PSNR {psnr13!r} dB, FLIP {flip13!r} (gate >= 45.5 dB, <= 0.018)")
+    if not (psnr13 >= 45.5 and flip13 <= 0.018):
+        raise AssertionError("sphere.json evaluate misses the quality gate")
+
+    # ---- 14. the same at 1080p x 8, counted ------------------------------
+    all_counters["K7"] = fm.apply_fused
+    for f in all_counters.values():
+        f.launches = 0
+    text = run_evaluate(evaluate, [
+        sph_cfg_path, "--width", str(W), "--height", str(H),
+        "--total-samples", "8", "--batch-spp", "8", "--output",
+        sout + "_1080p"])
+    eval14 = {k: f.launches for k, f in all_counters.items()}
+    psnr14, flip14 = parse_metrics(text)
+    rates = re.findall(r"(Ground truth|Neural): ([0-9.]+) Mrays/s", text)
+    peaks = re.findall(r"(Ground truth|Neural): peak device memory (\d+) "
+                       r"MiB", text)
+    log(f"[evaluate sphere.json {W}x{H} x8, one batch of 8 spp] launches "
+        f"{eval14}, Mrays/s {rates}, peak MiB {peaks}, PSNR {psnr14!r} dB, "
+        f"FLIP {flip14!r}")
+    if eval14["K7"] <= 0 or eval14["K2"] != 0:
+        raise AssertionError("the sphere.json neural pass did not run "
+                             "through K7")
+    if not (psnr14 > 25.0 and flip14 < 0.1):
+        raise AssertionError("1080p sphere.json evaluate is malformed")
+    launches["K7"] = eval14["K7"]
+
+    # ---- 15. flat FP16 blob round trip -----------------------------------
+    blob_dir = os.path.join(ROOT, "comparison_output", "smoke_blob")
+    os.makedirs(blob_dir, exist_ok=True)
+    copy = os.path.join(blob_dir, "weights_copy.bin")
+    nbvh.save_flat_blob(copy, nbvh.load_flat_blob(
+        os.path.join(ROOT, "configs", "sphere", "weights.bin"), snet.config,
+        device=dev))
+    with open(copy, "rb") as f, open(os.path.join(
+            ROOT, "configs", "sphere", "weights.bin"), "rb") as g:
+        same = f.read() == g.read()
+    log(f"[blob] weights.bin -> load_flat_blob -> save_flat_blob: "
+        f"byte-identical {same}")
+    if not same:
+        raise AssertionError("save_flat_blob does not give weights.bin back")
+
+    # ---- 16. training sphere.json (tcnn) ---------------------------------
+    t0 = time.perf_counter()
+    out_blob = os.path.join(blob_dir, "sphere_trained.bin")
+    text = run_cli(train_cli.main, [
+        sph_cfg_path, "--steps", "100", "--batch-size", "16384",
+        "--segments-per-ray", "1", "--lr-schedule", "cosine",
+        "--log-every", "1", "--ckpt-dir",
+        os.path.join(blob_dir, "sphere_ckpt"), "--out", out_blob],
+        keep=lambda ln: not re.match(r"step (\d+)/", ln) or
+        int(re.match(r"step (\d+)/", ln).group(1)) % 10 in (0, 1))
+    steps16 = re.findall(r"step (\d+)/100 loss=([0-9.]+).*\(([0-9.]+) "
+                         r"Msegments/s\)", text)
+    first, last = float(steps16[0][1]), float(steps16[-1][1])
+    log(f"[train sphere.json 100 steps] {time.perf_counter() - t0:.2f} s, "
+        f"loss {first!r} -> {last!r}, {steps16[-1][2]} Msegments/s")
+    if not (len(steps16) == 100 and last <= 0.5 * first):
+        raise AssertionError("tcnn training did not halve the loss in 100 "
+                             "steps")
+    if f"exported flat FP16 blob: {out_blob}" not in text:
+        raise AssertionError("cli/train.py exported no blob")
+    if not Renderer(Scene.from_config(scfg), scfg.neural_network,
+                    device=dev).load_weights_from_file(out_blob):
+        raise AssertionError("the exported blob does not load")
+    text = run_evaluate(evaluate, [
+        sph_cfg_path, "--width", "192", "--height", "108",
+        "--total-samples", "8", "--ckpt", out_blob, "--output",
+        os.path.join(blob_dir, "eval")])
+    psnr16, flip16 = parse_metrics(text)
+    log(f"[train sphere.json] exported blob through evaluate 192x108 x8: "
+        f"PSNR {psnr16!r} dB, FLIP {flip16!r}")
+
     out = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         k = kernels[key]
         t_ops = k.pop("ops") / k.pop("peak_ops")
         t_bytes = k.pop("bytes") / PEAK_BYTES

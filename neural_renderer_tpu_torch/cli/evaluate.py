@@ -30,9 +30,9 @@ def main(argv=None) -> int:
     parser.add_argument("--total-samples", type=int, default=None,
                         help="override the config's total_samples")
     parser.add_argument("--ckpt", default="",
-                        help="weights to load (.npz from scripts/"
-                             "export_lane_ckpt_npz.py), overriding the "
-                             "config's checkpoint_path")
+                        help="weights to load (an .npz, or the flat "
+                             "FP16 blob of a tcnn-layout network), "
+                             "overriding the config's checkpoint_path")
     parser.add_argument("--no-additional", action="store_true",
                         help="disable the additional mesh in the neural "
                              "pass (the ground-truth pass never traces it)")

@@ -5,16 +5,18 @@ shell segments against the ground-truth mesh on the device, optimizes with
 AdamW, and writes checkpoints as `<name>_step<N>.npz` (the weights, which
 `evaluate --ckpt` and a config's `checkpoint_path` of `<name>_ckpt/step_<N>`
 load) plus `<name>_step<N>.adam.npz` (the optimizer state, for `--resume`).
-Without `--ckpt-dir` the name is `<config>` (beside the config file). Runs on
-the GPU unless `--device cpu` is given.
+Without `--ckpt-dir` the name is `<config>` (beside the config file). A
+tcnn-layout network is also exported as the reference's flat FP16 blob,
+`--out` (default `<config>_weights.bin`). Runs on the GPU unless `--device
+cpu` is given.
 
 Usage: python -m neural_renderer_tpu_torch.cli.train <config.json>
          [--steps N --batch-size B --lr LR --ckpt-dir DIR --resume CKPT
+          --out BLOB
           --lr-schedule constant|cosine --segments-per-ray S
           --fused auto|on|off --device cuda|cpu]
 
-Not ported, each refused by name: `--dp`/`--tp` > 1, tcnn-layout networks
-(and with them the flat FP16 blob `--out` would write), and resuming from an
+Not ported, each refused by name: `--dp`/`--tp` > 1 and resuming from an
 orbax checkpoint of the JAX package.
 """
 
@@ -33,8 +35,9 @@ def main(argv=None) -> int:
     parser.add_argument("--batch-size", type=int, default=16384)
     parser.add_argument("--lr", type=float, default=1e-3)
     parser.add_argument("--out", default="",
-                        help="flat FP16 blob output path (tcnn-layout "
-                             "networks, not ported)")
+                        help="flat FP16 blob output path of a "
+                             "tcnn-layout network (default "
+                             "<config>_weights.bin)")
     parser.add_argument("--ckpt-dir", default="",
                         help="checkpoint name <name>_ckpt: writes "
                              "<name>_step<N>.npz and .adam.npz")
@@ -78,17 +81,13 @@ def main(argv=None) -> int:
     from ..config import load_config
     from ..models import nbvh
     from ..scene.scene import Scene
-    from ..train import (TrainConfig, init_train_state, make_train_step,
+    from ..train import (TrainConfig, export_reference_blob,
+                         init_train_state, make_train_step,
                          restore_checkpoint, save_checkpoint,
                          scene_global_row, segment_domain)
 
     cfg = load_config(args.config)
     nn_cfg = cfg.neural_network
-    if nn_cfg.grid_type != "lane":
-        print(f"train: grid_type '{nn_cfg.grid_type}': only lane-grid "
-              "networks are ported (the tcnn-layout grid and its "
-              "export_reference_blob are not)", file=sys.stderr)
-        return 1
     scene = Scene.from_config(cfg)
     if scene.failed_meshes:
         print("train: could not load: " + ", ".join(scene.failed_meshes),
@@ -147,6 +146,10 @@ def main(argv=None) -> int:
             print(f"checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
 
     print(f"final checkpoint: {save_checkpoint(ckpt_dir, state)}")
+    if net_config.grid_type == "tcnn":
+        out = args.out or (os.path.splitext(args.config)[0] + "_weights.bin")
+        export_reference_blob(out, state, net_config)
+        print(f"exported flat FP16 blob: {out}")
     return 0
 
 

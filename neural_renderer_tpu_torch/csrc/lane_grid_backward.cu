@@ -35,7 +35,7 @@
 //      thread in FP32 FMAs, and adds its tile to dW by atomicAdd.
 // f32 atomics reorder the sums from run to run.
 //
-// Bound: operations. Per ray 3 x 67,584 multiply-adds (forward recompute,
+// Bound: operations. Per ray 3 x 65,536 multiply-adds (forward recompute,
 // the delta chain, the dW products), which this version runs on the FP32
 // pipes; the bound is taken against the bf16 tensor-core peak. On top come
 // 768 table reads and 768 scattered f32 atomic adds per ray.

@@ -16,7 +16,7 @@
 // output. No thread touches another's column, so the layers need no block
 // barrier.
 //
-// Bound: operations, 67,584 multiply-adds per ray in the MLP. This version
+// Bound: operations, 65,536 multiply-adds per ray in the MLP. This version
 // runs them as FP32 FMAs (explicit __fmaf_rn; the file is compiled with
 // -fmad=false so the encode rounds op by op like the PyTorch twin).
 #include <stdint.h>

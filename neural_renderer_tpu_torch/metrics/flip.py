@@ -178,9 +178,10 @@ def _redistribute_errors(de_c, cmax):
 
 @torch.no_grad()
 def compute_flip_map(reference_srgb, test_srgb, ppd: float | None = None,
-                     device="cpu"):
+                     device="cuda"):
     """reference/test: [H, W, 3] float sRGB in [0, 1]. Returns the [H, W]
-    error map in [0, 1] as a tensor on `device`."""
+    error map in [0, 1] as a tensor on `device` (the card unless the caller
+    passes "cpu")."""
     if ppd is None:
         ppd = calculate_ppd()
     ref = torch.as_tensor(np.asarray(reference_srgb, np.float32),
@@ -228,8 +229,9 @@ def compute_flip_map(reference_srgb, test_srgb, ppd: float | None = None,
 
 
 def compute_flip(reference_u8, test_u8, ppd: float | None = None,
-                 output_path: str | None = None, device="cpu"):
-    """uint8 image API. Returns (mean_error, max_error); optionally saves a
+                 output_path: str | None = None, device="cuda"):
+    """uint8 image API, computed on `device` (the card unless the caller
+    passes "cpu"). Returns (mean_error, max_error); optionally saves a
     Magma-colormap visualization PNG."""
     ref = np.asarray(reference_u8).astype(np.float32) / 255.0
     test = np.asarray(test_u8).astype(np.float32) / 255.0

@@ -32,6 +32,7 @@ SOURCES = {
     "trace_cluster_stream": "trace_cluster_stream.cu",
     "sweep_dense": "sweep_dense.cu",
     "lane_grid_backward": "lane_grid_backward.cu",
+    "fused_mlp": "fused_mlp.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op by op

@@ -20,10 +20,11 @@ of dynamic shared memory, loaded once per block. Each thread encodes its ray
 (786 KB of packed tables at S=16, read from L2 where they stay resident),
 writes its 112 features (zero-padded to 128) as bf16 to its own shared
 column, then runs the layers in f32 FMAs over bf16 operands, re-rounding
-each hidden activation to bf16. Bound on the card: operations, 2 x 67,584
-multiply-adds per ray of the MLP; this first version runs them on the FP32
-pipes (the tensor-core `mma`/`wgmma` form is later work), so its bound is
-taken against the bf16 tensor-core peak and it is far from it.
+each hidden activation to bf16. Bound on the card: operations, 2 x 65,536
+multiply-adds per ray of the MLP (layer 0 at its 112 real inputs); this
+first version runs them on the FP32 pipes (the tensor-core `mma`/`wgmma`
+form is later work), so its bound is taken against the bf16 tensor-core
+peak and it is far from it.
 """
 
 from __future__ import annotations

@@ -133,10 +133,17 @@ class Renderer:
         return self._accum_sample_count
 
     def load_weights_from_file(self, path: str) -> bool:
-        """Load lane-grid weights from an `.npz` written by
-        scripts/export_lane_ckpt_npz.py, or from the `.npz` that stands
-        beside an orbax checkpoint directory (see npz_for_checkpoint)."""
+        """Load weights: a file that is not an `.npz` is the reference's
+        flat FP16 blob, [hg | mlp] (tcnn-layout networks only; see
+        nbvh.load_flat_blob); an `.npz` (this package's checkpoints, or
+        scripts/export_lane_ckpt_npz.py's) loads either grid type, also
+        when named by the orbax directory it stands beside (see
+        npz_for_checkpoint)."""
         try:
+            if os.path.isfile(path) and not path.endswith(".npz"):
+                self.set_network(nbvh.load_flat_blob(
+                    path, self.net_config, device=self.device))
+                return True
             npz = npz_for_checkpoint(path)
             if not os.path.exists(npz):
                 raise OSError(

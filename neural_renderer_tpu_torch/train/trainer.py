@@ -5,15 +5,17 @@ segment batch against the ground-truth mesh on the device, then takes the
 gradient of `shell_losses` and an AdamW update. On lane-grid networks the
 gradient comes from `ops/lane_grid_train_kernel.py::apply_train` (K2 in
 training layout forward, K6 backward); `fused_kernel="off"` differentiates
-the plain PyTorch forward instead.
+the plain PyTorch forward instead. tcnn-layout networks always take autograd
+through the hash-grid encode and `nbvh.mlp_forward`, the path the JAX
+trainer differentiates (the fused MLP kernel K7 is inference-only).
 
 The optimizer has optax.adamw's semantics (b1 0.9, b2 0.999, eps 1e-8 added
 outside the square root, decoupled weight decay on every parameter, the
 learning rate of step t taken before the step count advances), and the
 cosine schedule is optax.cosine_decay_schedule's. Checkpoints are this
 package's own: the weights `.npz` of models/convert.py plus a file with the
-Adam moments and the step. The tcnn-layout network, its flat-blob export and
-the dp/tp mesh are not ported.
+Adam moments and the step; `export_reference_blob` writes a tcnn-layout
+network as the reference's flat FP16 blob. The dp/tp mesh is not ported.
 """
 
 from __future__ import annotations
@@ -123,7 +125,8 @@ def init_train_state(cfg: TrainConfig, net_config: nbvh.NbvhConfig,
 
 def resolve_fused(cfg: TrainConfig, net_config: nbvh.NbvhConfig,
                   device) -> bool:
-    """Whether the step differentiates through apply_train."""
+    """Whether the step differentiates through apply_train (lane-grid
+    networks only)."""
     if cfg.fused_kernel not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused_kernel '{cfg.fused_kernel}'")
     if cfg.fused_kernel == "off" or net_config.grid_type != "lane":
@@ -210,8 +213,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
     os.makedirs(os.path.dirname(weights), exist_ok=True)
     convert.save_params_npz(weights, state.net)
     arrays = {"step": np.int64(state.step)}
-    names = ["lane"] + [f"mlp_{i}" for i in range(len(state.net.mlp))]
-    for name, p in zip(names, state.net.parameters()):
+    for name, p in zip(convert.param_names(state.net),
+                       state.net.parameters()):
         st = state.optimizer.state.get(p, {})
         for key in ("exp_avg", "exp_avg_sq"):
             arrays[f"{key}_{name}"] = (
@@ -245,7 +248,7 @@ def restore_checkpoint(path: str, cfg: TrainConfig,
     net.requires_grad_(True)
     with np.load(adam) as z:
         step = int(z["step"])
-        names = ["lane"] + [f"mlp_{i}" for i in range(len(net.mlp))]
+        names = convert.param_names(net)
         saved = {i: {"step": torch.tensor(float(step)),
                      "exp_avg": torch.as_tensor(z[f"exp_avg_{name}"]),
                      "exp_avg_sq": torch.as_tensor(z[f"exp_avg_sq_{name}"])}
@@ -259,10 +262,6 @@ def restore_checkpoint(path: str, cfg: TrainConfig,
 
 def export_reference_blob(path: str, state: TrainState,
                           net_config: nbvh.NbvhConfig):
-    """The reference's flat FP16 blob encodes the tcnn grid layout, which
-    this package does not have yet; lane-grid networks checkpoint as
-    `.npz`."""
-    raise NotImplementedError(
-        "export_reference_blob: the tcnn-layout network and its flat FP16 "
-        "blob are not ported; lane-grid networks are saved by "
-        "save_checkpoint")
+    """Write the reference-compatible flat FP16 checkpoint ([hg | mlp], the
+    shared grid) of a tcnn-layout network."""
+    nbvh.save_flat_blob(path, state.net)

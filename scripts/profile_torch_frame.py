@@ -2,6 +2,7 @@
 
     python scripts/profile_torch_frame.py [--weights trained|seeded]
     python scripts/profile_torch_frame.py --knot gt|neural [--spp 8]
+    python scripts/profile_torch_frame.py --sphere gt|neural [--spp 8]
     python scripts/profile_torch_frame.py --train knot|sphere [--batch N]
 
 Default: the chip_smoke.py sphere workload (shelled sphere, lane S=16,
@@ -9,7 +10,9 @@ Default: the chip_smoke.py sphere workload (shelled sphere, lane S=16,
 torch.profiler. With --knot: one pass of `evaluate` on
 configs/knot/knot_lane.json (ground truth or neural) at 1920x1080, batches
 of --spp samples per pixel through the Renderer: one warm-up batch, then
---frames batches under the profiler. Prints the wall time per frame, the
+--frames batches under the profiler. --sphere does the same on
+configs/sphere/sphere.json (the tcnn-layout network, weights.bin). Prints
+the wall time per frame, the
 summed device time of all kernels and the device's idle share over the
 window, and the kernels with the largest device time (the port's CUDA
 kernels by name, the rest PyTorch's own). With --train: training steps of
@@ -37,6 +40,7 @@ def main():
                     default="trained")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--knot", choices=("gt", "neural"), default=None)
+    ap.add_argument("--sphere", choices=("gt", "neural"), default=None)
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--train", choices=("knot", "sphere"), default=None)
     ap.add_argument("--batch", type=int, default=262144)
@@ -64,11 +68,14 @@ def main():
                f"train {args.train}, {args.batch} segments x "
                f"{segments} per ray per step")
         return
-    if args.knot:
-        render = knot_pass(args.knot, args.spp, w, h, dev)
-        report(profile_frames(render, 1, args.frames), args.frames,
-               f"knot {args.knot} pass, {args.spp} spp per batch")
-        return
+    for scene, which, cfg_name in (("knot", args.knot, "knot_lane.json"),
+                                   ("sphere", args.sphere, "sphere.json")):
+        if which:
+            render = evaluate_pass(scene, cfg_name, which, args.spp, w, h,
+                                   dev)
+            report(profile_frames(render, 1, args.frames), args.frames,
+                   f"{cfg_name} {which} pass, {args.spp} spp per batch")
+            return
     outer_h = outward_sphere(24, 48, 1.15)
     cfg = nbvh.NbvhConfig(grid_type="lane", lane_sublanes=16,
                           lane_entry_pack=2)
@@ -101,19 +108,19 @@ def main():
            f"weights {args.weights}")
 
 
-def knot_pass(which, spp, w, h, dev):
-    """`render()` that runs one batch of the knot's ground-truth or neural
-    pass as `evaluate` does."""
+def evaluate_pass(scene, cfg_name, which, spp, w, h, dev):
+    """`render()` that runs one batch of configs/<scene>/<cfg_name>'s
+    ground-truth or neural pass as `evaluate` does."""
     from neural_renderer_tpu_torch import config as nr_config
     from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
                                                            Renderer)
     from neural_renderer_tpu_torch.scene.scene import Scene
-    cfg = nr_config.load_config(os.path.join(ROOT, "configs", "knot",
-                                             "knot_lane.json"))
+    cfg = nr_config.load_config(os.path.join(ROOT, "configs", scene,
+                                             cfg_name))
     renderer = Renderer(Scene.from_config(cfg),
                         cfg.neural_network, device=dev)
     if not renderer.load_weights_from_file(cfg.checkpoint_path):
-        sys.exit("profile_torch_frame: knot weights missing")
+        sys.exit(f"profile_torch_frame: {cfg_name} weights missing")
     pos, yaw, pitch = nr_config.matrix_to_camera_state(cfg.camera.matrix)
     renderer.set_camera_basis(RenderBasis(
         *nr_config.camera_basis_from_state(yaw, pitch, cfg.camera.yfov)))

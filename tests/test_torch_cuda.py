@@ -9,7 +9,8 @@ Every test needs a CUDA device and skips without one. Tolerances: the four
 trace and sweep kernels are built with -fmad=false and evaluate the twin's
 expressions in the twin's order, so they are held bit-exact; the network
 kernel sums its bf16 products in another order than the twin's f32 matmul,
-so it is held to max|d| / max|twin| < 2e-2; the training backward kernel
+so it is held to max|d| / max|twin| < 2e-2, as is the fused MLP kernel of
+tcnn-layout networks (tensor-core sums); the training backward kernel
 adds its f32 sums by atomics in no fixed order, so each gradient is held to
 1e-3 of the twin's largest |grad|; whole frames to
 tests/test_frame_interpret.py's tolerance.
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from neural_renderer_tpu_torch.models import nbvh
-from neural_renderer_tpu_torch.ops import (lane_grid_kernel,
+from neural_renderer_tpu_torch.ops import (fused_network, lane_grid_kernel,
                                            lane_grid_train_kernel,
                                            trace_cluster, trace_pallas,
                                            traversal)
@@ -159,6 +160,31 @@ def test_network_kernel_matches_twin(cuda, entry_pack):
     assert (out[:, 128:256] == 0).all()
     rel = (out - twin).abs().max() / twin.abs().max()
     assert rel.item() < 2e-2
+
+
+@pytest.mark.parametrize("n", [4096, 1000])
+def test_fused_mlp_kernel_matches_twin(cuda, n):
+    """K7 (csrc/fused_mlp.cu) against apply_fused_twin on the encoded
+    features of a seeded tcnn network, on a whole number of the kernel's
+    256-row steps and on a ragged count: every output within 2e-2 of the
+    largest; apply_fused and nbvh.apply launch it once per call."""
+    cfg = nbvh.NbvhConfig(grid_type="tcnn")
+    net = nbvh.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    with torch.no_grad():
+        for t in net.grid:
+            t.mul_(1e3)
+    x = torch.rand((12, n), generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda)
+    rows = fused_network.pack_input(nbvh.encode_inputs(net, x))
+    before = fused_network.apply_fused.launches
+    out = fused_network.fused_mlp(net, rows)
+    assert fused_network.apply_fused.launches == before + 1
+    twin = fused_network.apply_fused_twin(net, rows)
+    assert out.shape == twin.shape == (16, n)
+    assert (out - twin).abs().max() <= 2e-2 * twin.abs().max()
+    assert torch.equal(fused_network.apply_fused(net, x), out)
+    assert torch.equal(nbvh.apply(net, x), out)
+    assert fused_network.apply_fused.launches == before + 3
 
 
 def test_train_kernels_match_twins(cuda):

@@ -85,11 +85,12 @@ def test_psnr_and_flip_match_jax(tmp_path):
     assert metrics.compute_psnr(a, b) == jmetrics.compute_psnr(a, b)
     assert metrics.compute_psnr(a, a) == 100.0
     out = str(tmp_path / "flip.png")
-    mean, worst = metrics.compute_flip(a, b, output_path=out)
+    mean, worst = metrics.compute_flip(a, b, output_path=out, device="cpu")
     jmean, jworst = jmetrics.compute_flip(a, b, device="cpu")
     print(f"FLIP mean {mean} vs {jmean}, max {worst} vs {jworst}")
     assert abs(mean - jmean) <= 1e-4 and abs(worst - jworst) <= 1e-4
-    fmap = metrics.compute_flip_map(a / 255.0, b / 255.0).numpy()
+    fmap = metrics.compute_flip_map(a / 255.0, b / 255.0,
+                                    device="cpu").numpy()
     jmap = np.asarray(jmetrics.compute_flip_map(a / 255.0, b / 255.0))
     assert np.abs(fmap - jmap).max() <= 1e-4
     # The visualization is the Magma colormap of the error map.

@@ -370,8 +370,9 @@ def _tiny_config(tmp_path, grid_type="lane"):
 def test_train_cli_cpu(tmp_path, capsys):
     """train.main on the CPU: the checkpoint loads in the Renderer (through
     the config's checkpoint_path) with equal tensors, --resume continues
-    the step count, and --dp, a tcnn config and an orbax directory are
-    refused by name."""
+    the step count, a tcnn config trains and exports its flat FP16 blob
+    (`--out`), which loads in the Renderer, and --dp and an orbax directory
+    are refused by name."""
     cfg = _tiny_config(tmp_path)
     ckpt = str(tmp_path / "tiny_ckpt")
     common = [cfg, "--batch-size", "192", "--segments-per-ray", "3",
@@ -401,9 +402,18 @@ def test_train_cli_cpu(tmp_path, capsys):
 
     assert train_cli.main([cfg, "--dp", "2", "--device", "cpu"]) == 1
     assert "--dp/--tp" in capsys.readouterr().err
-    assert train_cli.main([_tiny_config(tmp_path, "tcnn"), "--device",
-                           "cpu"]) == 1
-    assert "tcnn" in capsys.readouterr().err
+    tcnn_cfg = _tiny_config(tmp_path, "tcnn")
+    blob = str(tmp_path / "tiny_tcnn.bin")
+    assert train_cli.main([tcnn_cfg, "--steps", "1", "--batch-size", "64",
+                           "--device", "cpu", "--out", blob, "--ckpt-dir",
+                           str(tmp_path / "tiny_tcnn_ckpt")]) == 0
+    assert f"exported flat FP16 blob: {blob}" in capsys.readouterr().out
+    tcfg = load_config(tcnn_cfg)
+    rend = Renderer(Scene(), tcfg.neural_network, device="cpu")
+    assert rend.load_weights_from_file(blob)
+    assert rend.net.config.grid_type == "tcnn"
+    assert os.path.getsize(blob) == 2 * rend.net.config.mlp_n_params + \
+        2 * rend.net.config.hg_n_params
     orbax_dir = os.path.join(ROOT, "configs", "sphere", "lane16_ckpt",
                              "step_24000")
     assert train_cli.main([cfg, "--resume", orbax_dir, "--device",
