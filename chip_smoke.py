@@ -72,7 +72,27 @@ its training. Phases, each failing the run:
  16. train 100 seeded steps of sphere.json through `cli/train.py` (16,384
      segments x 1, cosine schedule): the loss must at least halve, and the
      exported flat FP16 blob (`--out`) must load in the Renderer and render
-     through `evaluate`.
+     through `evaluate`;
+ 17. the matrix formulation of the traces (NR_TRACE_MXU=1): hold each of
+     its four kernels against its twin (hit flips under 2e-3, t within 1e-6
+     relative and absolute where both hit, ids equal on 99.9%) and against
+     the default kernel (the JAX package's MXU-against-oracle bounds: t
+     within 1e-5 relative and 1e-5 absolute with ids on 99.9% for the dense
+     trace, 1e-6 absolute with ids on 99% for the sweeps; on the knot, seen
+     from beyond those tests' rays, t within 5e-5 relative and 5e-4
+     absolute on rays that take the same triangle) on phases 2, 5 and 6's
+     inputs: K8 on the outer-shell FORWARD_ONLY slice, K1-MXU on the
+     camera fwd2 sweep, K4-MXU on the small-shell camera rays, K5-MXU on the
+     knot's sorted camera rays and first bounce rays; time kernel, twin and
+     default kernel;
+ 18. with NR_TRACE_MXU=1, render 480x270 through the MXU kernels and
+     through their twins on the card (phase 3's bounds), then the full-size
+     frame as phase 4 (seeded weights counted: K1-MXU and K8 must launch,
+     the default K1 and K3 not at all; trained weights timed);
+ 19. with NR_TRACE_MXU=1, run `evaluate` on the knot at 480x270 x 64 and
+     hold it to phase 7's gate (K5-MXU and K1-MXU must launch, K5 and K1
+     not at all), and render the small-shell scene through K4-MXU and
+     through its twin (phase 3's bounds).
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -96,7 +116,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_FP64_TC = 67e12  # FP64 tensor cores (NVIDIA H100 SXM data sheet)
 MT_OPS = 45          # FP32 operations per (ray, triangle) pair
+MXU_FLOPS = 38       # FP64 flops per pair the function needs (csrc/mt_mxu.cuh)
+# The matrix formulation's bounds (tests/test_trace_mxu.py): its kernels
+# against their twins (:128-136); against the default kernels, the dense
+# trace (:73-83) and the sweeps and clustered trace (:161-165, :204-212).
+MXU_TWIN = dict(rtol=1e-6, atol=1e-6, ids=0.999)
+MXU_DENSE_VPU = dict(rtol=1e-5, atol=1e-5, ids=0.999)
+MXU_VPU = dict(rtol=1e-5, atol=1e-6, ids=0.99)
+# The clustered trace against K5 on the knot, seen from distance 7 (beyond
+# the radius-3 rays of those tests): the matrix form's t·det = o·n - v0·n
+# cancels f32 terms of size |o||n| where K5 forms o - v0 first, so t's
+# error is absolute, |o| eps / |cos|, and grows on grazing rays. Measured
+# on the H100: camera rays 1.29e-5 relative (9.3e-5 absolute at t ~ 7),
+# first bounce rays 1.18e-4 absolute at t ~ 2e-3. t is held where both
+# take the same triangle; a ray that takes another one (an edge of a
+# nearer triangle hit by one form only, 1 of 17,204 bounce rays) lies in
+# the ids bound.
+MXU_KNOT_VPU = dict(rtol=5e-5, atol=5e-4, ids=0.99, t_same_id=True)
 SLICE = 131072       # rays per kernel-vs-twin comparison
 
 W, H, SPP, BOUNCES = 1920, 1080, 1, 3
@@ -146,8 +184,8 @@ def main() -> int:
     from neural_renderer_tpu_torch.ops import (cuda_build, fused_network,
                                                lane_grid_kernel,
                                                lane_grid_train_kernel,
-                                               trace_cluster, trace_pallas,
-                                               traversal)
+                                               trace_cluster, trace_mxu,
+                                               trace_pallas, traversal)
     from neural_renderer_tpu_torch.render import neural_frame
     from neural_renderer_tpu_torch.render import pathtrace as pt
     from neural_renderer_tpu_torch.render.neural_march import (
@@ -226,6 +264,7 @@ def main() -> int:
         return ops, err
 
     ops1, err1 = sweep_case(o_s, d_s, True, "camera fwd2 sweep")
+    mxu_inputs = {"K1": ops1}   # phases 2, 5, 6's operands for phase 17
     # One bounce sweep: camera hits of the full frame -> bounce rays, the
     # active ones in the stage's sorted compaction order.
     hits = neural_frame.trace_neural_segments(ctx, params, origins, dirs)
@@ -252,6 +291,7 @@ def main() -> int:
         f" ids equal and bit-exact {exact3}")
     if not exact3:
         raise AssertionError("K3: kernel != twin")
+    mxu_inputs["K3"] = (o3, d3, tp3, bm3)
 
     entry_pos, active, _, sw1 = _camera_fwd2_entry(ctx, origins, dirs)
     net_in = segment_inputs(ctx, params, dirs, entry_pos, active, sw=sw1)[0]
@@ -365,7 +405,8 @@ def main() -> int:
                 lane_grid_kernel.forward_lane, trace_pallas.trace_dense)
     for f in counters:
         f.launches = 0
-    img, accum = run_frames(seeded_ctx, env, make_params, "seeded")
+    img, accum, default_mrays = run_frames(seeded_ctx, env, make_params,
+                                           "seeded")
     launches = {"K1": counters[0].launches, "K2": counters[1].launches,
                 "K3": counters[2].launches}
     log(f"[frame {W}x{H} seeded] launches over 3 frames {launches}")
@@ -378,7 +419,7 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{key} was never launched on the main "
                                  "path")
-    run_frames(ctx, env, make_params, "trained")
+    default_trained = run_frames(ctx, env, make_params, "trained")[2]
 
     # One more frame with CUDA events around every kernel wrapper call
     # (wrapper-side preparation included: an upper bound per kernel).
@@ -439,6 +480,7 @@ def main() -> int:
             raise AssertionError(f"K5 {label}: kernel != twin")
         if bool(ops[7].any()):
             raise AssertionError(f"K5 {label}: a worklist overflowed")
+        mxu_inputs[f"K5 {label}"] = (args, mode)
         ms = time_ms(lambda: trace_cluster.trace_clusters_stream(*args, mode))
         pms = time_ms(lambda: trace_cluster.trace_clusters_twin(*args, mode),
                       reps=2)
@@ -471,6 +513,7 @@ def main() -> int:
     small_inner_h = outward_sphere(16, 32, 0.85)
     so, si = small_outer_h.to_tensors(dev), small_inner_h.to_tensors(dev)
     ops4 = traversal.dense_sweep_operands(so, si, o_s, d_s)
+    mxu_inputs["K4"] = ops4
     err4 = 0.0
     for fwd2 in (True, False):
         ker4 = trace_pallas.sweep_shells_dense(*ops4[:4], fwd2, ops4[4])
@@ -556,6 +599,7 @@ def main() -> int:
     if not (diff == 0).all() or img_k.std() < 1.0:
         raise AssertionError("small-shell kernel frame differs from the "
                              "twin frame")
+    small_rend = srend
 
     # ---- 9. K6 against its twin on knot segments ------------------------
     ltk = lane_grid_train_kernel
@@ -851,8 +895,228 @@ def main() -> int:
     log(f"[train sphere.json] exported blob through evaluate 192x108 x8: "
         f"PSNR {psnr16!r} dB, FLIP {flip16!r}")
 
+    # ---- 17. the MXU kernels against twins and default kernels ----------
+    def hold(label, got, want, bounds, ids_got=None, ids_want=None):
+        a = trace_mxu.agreement(got, want, ids_got, ids_want,
+                                bounds["rtol"], bounds["atol"])
+        log(f"[{label}] hit flips {a['flips']!r}, both hit {a['both']}, "
+            f"max|dt| {a['max_abs']!r}, max rel dt {a['max_rel']!r}, ids "
+            f"equal {a['ids']!r}")
+        within = a["within"]
+        if bounds.get("t_same_id"):
+            same = ids_got == ids_want
+            s = trace_mxu.agreement(got[same], want[same],
+                                    rtol=bounds["rtol"], atol=bounds["atol"])
+            log(f"[{label}] on the same triangle: max|dt| "
+                f"{s['max_abs']!r}, max rel dt {s['max_rel']!r}")
+            within = s["within"]
+        if not (a["flips"] < 2e-3 and within
+                and a["ids"] >= bounds["ids"]):
+            raise AssertionError(f"{label}: outside {bounds}")
+        return a["max_abs"]
+
+    def hold_rows(label, ker, twin, vpu):
+        err = 0.0
+        for row in range(ker.shape[0]):
+            err = max(err, hold(f"{label} row {row} vs twin", ker[row],
+                                twin[row], MXU_TWIN))
+            hold(f"{label} row {row} vs default", ker[row], vpu[row],
+                 MXU_VPU)
+        return err
+
+    def mxu_entry(name, source, replaces, err, ms, pms, vms, pairs, nbytes_):
+        log(f"[time {name}] kernel {ms:.4f} ms, twin {pms:.4f} ms, default "
+            f"kernel {vms:.4f} ms, bound "
+            f"{pairs * MXU_FLOPS / PEAK_FP64_TC * 1e3:.4f} ms")
+        return dict(name=name, route="cuda",
+                    source="neural_renderer_tpu_torch/csrc/" + source,
+                    replaces=replaces, max_abs_err=err, ms=ms, plain_ms=pms,
+                    ops=pairs * MXU_FLOPS, bytes=nbytes_,
+                    peak_ops=PEAK_FP64_TC, library_ms=None)
+
+    t17 = time.perf_counter()
+    fwd = traversal.FORWARD_ONLY
+    o3, d3, tp3, bm3 = mxu_inputs["K3"]
+    k8 = trace_mxu.trace_dense_mxu(o3, d3, tp3, fwd, bm3)
+    t8 = trace_pallas.trace_dense_twin(o3, d3, tp3, fwd, bm3, mxu=True)
+    v8 = trace_pallas.trace_dense(o3, d3, tp3, fwd, bm3, mxu=False)
+    ids8 = [x[1].view(torch.int32) for x in (k8, t8, v8)]
+    err8 = hold("K8 outer FORWARD_ONLY vs twin", k8[0], t8[0], MXU_TWIN,
+                ids8[0], ids8[1])
+    hold("K8 outer FORWARD_ONLY vs K3", k8[0], v8[0], MXU_DENSE_VPU,
+         ids8[0], ids8[2])
+    kernels["K8"] = mxu_entry(
+        "trace_dense_mxu (dense closest hit, matrix formulation)",
+        "trace_dense_mxu.cu", "neural_renderer_tpu/ops/trace_mxu.py:112",
+        err8, time_ms(lambda: trace_mxu.trace_dense_mxu(o3, d3, tp3, fwd,
+                                                        bm3)),
+        time_ms(lambda: trace_pallas.trace_dense_twin(o3, d3, tp3, fwd, bm3,
+                                                      mxu=True), reps=3),
+        time_ms(lambda: trace_pallas.trace_dense(o3, d3, tp3, fwd, bm3,
+                                                 mxu=False)),
+        pairs3, kernels["K3"]["bytes"])
+
+    ops1 = mxu_inputs["K1"]
+    err1m = hold_rows(
+        "K1-MXU camera fwd2 sweep",
+        trace_cluster.sweep_clusters_stream_mxu(*ops1, with_fwd2=True),
+        trace_cluster.sweep_clusters_twin(*ops1, True, mxu=True),
+        trace_cluster.sweep_clusters_stream(*ops1, with_fwd2=True,
+                                            mxu=False))
+    kernels["K1-MXU"] = mxu_entry(
+        "sweep_stream_mxu (clustered dual-shell sweep, matrix formulation)",
+        "sweep_stream_mxu.cu", "neural_renderer_tpu/ops/trace_cluster.py:404",
+        err1m, time_ms(lambda: trace_cluster.sweep_clusters_stream_mxu(
+            *ops1, with_fwd2=True)),
+        time_ms(lambda: trace_cluster.sweep_clusters_twin(
+            *ops1, True, mxu=True), reps=3),
+        time_ms(lambda: trace_cluster.sweep_clusters_stream(
+            *ops1, with_fwd2=True, mxu=False)),
+        pairs1, bytes1)
+
+    ops4 = mxu_inputs["K4"]
+    err4m = hold_rows(
+        "K4-MXU small-shell camera sweep",
+        trace_pallas.sweep_shells_dense_mxu(*ops4[:4], True, ops4[4]),
+        trace_pallas.sweep_shells_dense_twin(*ops4[:4], True, ops4[4],
+                                             mxu=True),
+        trace_pallas.sweep_shells_dense(*ops4[:4], True, ops4[4],
+                                        mxu=False))
+    kernels["K4-MXU"] = mxu_entry(
+        "sweep_dense_mxu (dense dual-shell sweep, matrix formulation)",
+        "sweep_dense_mxu.cu", "neural_renderer_tpu/ops/trace_pallas.py:201",
+        err4m, time_ms(lambda: trace_pallas.sweep_shells_dense_mxu(
+            *ops4[:4], True, ops4[4])),
+        time_ms(lambda: trace_pallas.sweep_shells_dense_twin(
+            *ops4[:4], True, ops4[4], mxu=True), reps=3),
+        time_ms(lambda: trace_pallas.sweep_shells_dense(
+            *ops4[:4], True, ops4[4], mxu=False)),
+        pairs4, kernels["K4"]["bytes"])
+
+    err5m = 0.0
+    for label in ("knot camera", "knot bounce 1"):
+        args, mode = mxu_inputs[f"K5 {label}"]
+        swept = torch.zeros_like(args[5])
+        kt, ktri = trace_cluster.trace_clusters_stream_mxu(*args, mode, True,
+                                                           swept)
+        tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, mxu=True)
+        vt, vtri = trace_cluster.trace_clusters_stream(*args, mode,
+                                                       mxu=False)
+        err5m = max(err5m, hold(f"K5-MXU {label} vs twin", kt, tt, MXU_TWIN,
+                                ktri, ttri))
+        hold(f"K5-MXU {label} vs K5", kt, vt, MXU_KNOT_VPU, ktri, vtri)
+        ms = time_ms(lambda: trace_cluster.trace_clusters_stream_mxu(
+            *args, mode))
+        pms = time_ms(lambda: trace_cluster.trace_clusters_twin(
+            *args, mode, mxu=True), reps=1)
+        vms = time_ms(lambda: trace_cluster.trace_clusters_stream(
+            *args, mode, mxu=False))
+        pairs = int(swept.sum().item()) * trace_cluster.CLUSTER_SIZE * 512
+        entry = mxu_entry(
+            "trace_cluster_stream_mxu (clustered closest hit, matrix "
+            "formulation)", "trace_cluster_stream_mxu.cu",
+            "neural_renderer_tpu/ops/trace_cluster.py:169", err5m, ms, pms,
+            vms, pairs, nbytes(*args) + 2 * 4 * kt.shape[0])
+        if label == "knot camera":
+            kernels["K5-MXU"] = entry
+    kernels["K5-MXU"]["max_abs_err"] = err5m
+    log(f"[phase 17] {time.perf_counter() - t17:.1f} s")
+
+    # ---- 18. the sphere frame with NR_TRACE_MXU=1 ---------------------------
+    t18 = time.perf_counter()
+    mxu_counters = {"K1": trace_cluster.sweep_clusters_stream,
+                    "K3": trace_pallas.trace_dense,
+                    "K4": trace_pallas.sweep_shells_dense,
+                    "K5": trace_cluster.trace_clusters_stream,
+                    "K8": trace_mxu.trace_dense_mxu,
+                    "K1-MXU": trace_cluster.sweep_clusters_stream_mxu,
+                    "K4-MXU": trace_pallas.sweep_shells_dense_mxu,
+                    "K5-MXU": trace_cluster.trace_clusters_stream_mxu}
+    saved_env = os.environ.get("NR_TRACE_MXU")
+    os.environ["NR_TRACE_MXU"] = "1"
+    try:
+        img_k, _ = neural_frame.render_neural_frame(
+            ctx, env, p_small, torch.zeros((3, 480 * 270), device=dev))
+        with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                       traversal):
+            img_t, _ = neural_frame.render_neural_frame(
+                ctx, env, p_small, torch.zeros((3, 480 * 270), device=dev))
+        diff = (img_k.to(torch.int32) - img_t.to(torch.int32)).abs().float()
+        frac18, mean18 = (diff > 3).float().mean().item(), diff.mean().item()
+        log(f"[MXU frame 480x270 kernels vs twins] share > 3: {frac18!r}, "
+            f"mean |d| {mean18!r}")
+        if not (frac18 < 0.02 and mean18 < 1.0):
+            raise AssertionError("480x270 MXU kernel frame differs from the "
+                                 "twin frame")
+        for f in mxu_counters.values():
+            f.launches = 0
+        img, accum, mxu_mrays = run_frames(seeded_ctx, env, make_params,
+                                           "seeded, NR_TRACE_MXU=1")
+        frame18 = {k: f.launches for k, f in mxu_counters.items()}
+        log(f"[MXU frame {W}x{H} seeded] launches over 3 frames {frame18}")
+        if img.shape != (H, W, 3) or not torch.isfinite(accum).all():
+            raise AssertionError("full-size MXU frame is malformed")
+        if not (frame18["K1-MXU"] > 0 and frame18["K8"] > 0
+                and frame18["K1"] == 0 and frame18["K3"] == 0):
+            raise AssertionError("the MXU frame did not run through K1-MXU "
+                                 "and K8 alone")
+        launches["K8"] = frame18["K8"]
+        launches["K1-MXU"] = frame18["K1-MXU"]
+        mxu_trained = run_frames(ctx, env, make_params,
+                                 "trained, NR_TRACE_MXU=1")[2]
+        log(f"[MXU frame {W}x{H}] Mrays/s seeded {mxu_mrays!r} (default "
+            f"{default_mrays!r}), trained {mxu_trained!r} (default "
+            f"{default_trained!r})")
+        log(f"[phase 18] {time.perf_counter() - t18:.1f} s")
+
+        # ---- 19. knot evaluate and small shells with NR_TRACE_MXU=1 -------
+        t19 = time.perf_counter()
+        for f in mxu_counters.values():
+            f.launches = 0
+        text = run_evaluate(evaluate, [
+            knot_cfg_path, "--width", "480", "--height", "270", "--output",
+            out_dir + "_mxu"])
+        eval19 = {k: f.launches for k, f in mxu_counters.items()}
+        psnr19, flip19 = parse_metrics(text)
+        log(f"[MXU evaluate knot 480x270 x{kcfg.rendering.total_samples}] "
+            f"PSNR {psnr19!r} dB, FLIP {flip19!r} (gate >= 40.2 dB, <= "
+            f"0.018), launches {eval19}")
+        if not (psnr19 >= 40.2 and flip19 <= 0.018):
+            raise AssertionError("MXU knot evaluate misses the quality gate")
+        if not (eval19["K5-MXU"] > 0 and eval19["K1-MXU"] > 0
+                and eval19["K5"] == 0 and eval19["K1"] == 0):
+            raise AssertionError("the MXU evaluate did not run through "
+                                 "K5-MXU and K1-MXU alone")
+        launches["K5-MXU"] = eval19["K5-MXU"]
+
+        trace_pallas.sweep_shells_dense_mxu.launches = 0
+        img_k = small_rend.render_accumulate([0.0, 0.0, 3.0], 2, batch_spp=1)
+        launches["K4-MXU"] = trace_pallas.sweep_shells_dense_mxu.launches
+        with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                       traversal):
+            img_t = small_rend.render_accumulate([0.0, 0.0, 3.0], 2,
+                                                 batch_spp=1)
+        diff = abs(img_k.astype(int) - img_t.astype(int))
+        frac19, mean19 = float((diff > 3).mean()), float(diff.mean())
+        log(f"[MXU small shells 480x270 kernels vs twins] K4-MXU launches "
+            f"{launches['K4-MXU']}, share > 3: {frac19!r}, mean |d| "
+            f"{mean19!r}, mean u8 {img_k.mean():.3f}")
+        if launches["K4-MXU"] <= 0:
+            raise AssertionError("K4-MXU was never launched on the "
+                                 "small-shell path")
+        if not (frac19 < 0.02 and mean19 < 1.0) or img_k.std() < 1.0:
+            raise AssertionError("small-shell MXU kernel frame differs from "
+                                 "the twin frame")
+        log(f"[phase 19] {time.perf_counter() - t19:.1f} s")
+    finally:
+        if saved_env is None:
+            os.environ.pop("NR_TRACE_MXU", None)
+        else:
+            os.environ["NR_TRACE_MXU"] = saved_env
+
     out = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
+                "K4-MXU", "K5-MXU"):
         k = kernels[key]
         t_ops = k.pop("ops") / k.pop("peak_ops")
         t_bytes = k.pop("bytes") / PEAK_BYTES
@@ -949,7 +1213,7 @@ def parse_metrics(text):
 def run_frames(ctx, env, make_params, label, frames=2):
     """One warm-up frame, then `frames` timed frames of the full-size
     workload with a running accumulation; logs Mrays/s. Returns (image,
-    accum)."""
+    accum, Mrays/s)."""
     import torch
     from neural_renderer_tpu_torch.render import neural_frame
     accum = torch.zeros((3, W * H), device=ctx.outer.tris_packed.device)
@@ -967,13 +1231,17 @@ def run_frames(ctx, env, make_params, label, frames=2):
     mrays = W * H * SPP * frames / dt / 1e6
     log(f"[frame {W}x{H} spp{SPP} b{BOUNCES} {label}] {frames} frames in "
         f"{dt:.4f} s = {mrays!r} Mrays/s")
-    return img, accum
+    return img, accum, mrays
 
 
 @contextlib.contextmanager
 def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
     """Route the five kernel entry points to their PyTorch twins (on the
-    tensors' own device) for the duration of the block."""
+    tensors' own device) for the duration of the block; the trace twins in
+    the formulation NR_TRACE_MXU selects."""
+    from neural_renderer_tpu_torch.ops import trace_mxu
+    mxu = trace_mxu.use_mxu(None)
+
     def lane_twin(net, inputs, active=None):
         n = inputs.shape[1]
         npad = -(-max(n, 128) // 128) * 128
@@ -987,12 +1255,15 @@ def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
              traversal.sweep_shells_dense,
              trace_cluster.trace_clusters_stream)
     lane_grid_kernel.forward_lane = lane_twin
-    traversal.sweep_shells_dense = trace_pallas.sweep_shells_dense_twin
-    trace_cluster.trace_clusters_stream = trace_cluster.trace_clusters_twin
+    traversal.sweep_shells_dense = \
+        lambda *a: trace_pallas.sweep_shells_dense_twin(*a, mxu=mxu)
+    trace_cluster.trace_clusters_stream = \
+        lambda *a: trace_cluster.trace_clusters_twin(*a, mxu=mxu)
     trace_cluster.sweep_clusters_stream = \
         lambda *a, with_fwd2=False: trace_cluster.sweep_clusters_twin(
-            *a, with_fwd2=with_fwd2)
-    traversal.trace_dense = trace_pallas.trace_dense_twin
+            *a, with_fwd2=with_fwd2, mxu=mxu)
+    traversal.trace_dense = \
+        lambda *a: trace_pallas.trace_dense_twin(*a, mxu=mxu)
     try:
         yield
     finally:

@@ -33,6 +33,10 @@ SOURCES = {
     "sweep_dense": "sweep_dense.cu",
     "lane_grid_backward": "lane_grid_backward.cu",
     "fused_mlp": "fused_mlp.cu",
+    "trace_dense_mxu": "trace_dense_mxu.cu",
+    "sweep_stream_mxu": "sweep_stream_mxu.cu",
+    "sweep_dense_mxu": "sweep_dense_mxu.cu",
+    "trace_cluster_stream_mxu": "trace_cluster_stream_mxu.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op by op
@@ -122,6 +126,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}: "
                            f"{lib.nr_error_string(rc).decode()}")
+
+
+def check_operands(what: str, operands) -> None:
+    """Raise unless every (name, tensor, dtype) is a contiguous CUDA tensor
+    of that dtype: what a kernel's C entry takes."""
+    for name, x, dt in operands:
+        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous CUDA "
+                             f"{dt} tensor")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -34,6 +34,18 @@ reduction after each cluster. Bound on the card: FP32 operations, ~45 per
 pair actually swept (the wrapper can report clusters swept per block). The
 smallest triangle id wins among equal t, as in `trace_mesh_brute`, so
 kernel, twin and oracle agree exactly, with the break on or off.
+
+With `NR_TRACE_MXU=1` (or `mxu=True`) both wrappers take the matrix
+formulation of `ops/trace_mxu.py`: `sweep_clusters_stream` the kernel
+`csrc/sweep_stream_mxu.cu`, which replaces the `mxu=True` body of
+`_sweep4_cluster` (`trace_cluster.py:392-440`), and `trace_clusters_stream`
+the kernel `csrc/trace_cluster_stream_mxu.cu`, which replaces the `mxu=True`
+body of `_sweep_cluster` (`trace_cluster.py:156-191`). Worklists, the break
+with its exit-t cap and margin, and the tie rule stay as above; only the
+pair math changes: the four products as FP64 tensor-core products, then
+the FP32 epilogue and t > MIN_T (csrc/mt_mxu.cuh). Bound on the card: the
+FP64 tensor products, the function's 38 flops per swept pair (48 as
+issued) against 67 TFLOP/s. The twins take `mxu=True`.
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import cuda_build
+from . import cuda_build, trace_mxu
 from .trace_pallas import (MIN_T, MISS, _lane_pair_reduce, _mode_cull,
                            _mt_pairs, _mt_tile_t, _strict_pair_update)
 
@@ -192,9 +204,12 @@ def _stream_worklist(mask, btmin=None, kmax: int = STREAM_K):
 
 
 def sweep_clusters_twin(origins, dirs, tris_packed, ids, counts,
-                        outer_clusters: int, with_fwd2: bool):
+                        outer_clusters: int, with_fwd2: bool,
+                        mxu: bool = False):
     """Plain-PyTorch twin of the clustered sweep kernel, the same [5 or 4,
-    Npad] output. Each cluster is swept for the rays whose block lists it."""
+    Npad] output. Each cluster is swept for the rays whose block lists it.
+    `mxu` evaluates the pairs in the matrix formulation."""
+    pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
     n = origins.shape[1]
     nb = n // BLOCK_RAYS
     num_clusters = tris_packed.shape[1] // CLUSTER_SIZE
@@ -214,7 +229,7 @@ def sweep_clusters_twin(origins, dirs, tris_packed, ids, counts,
         if rows.numel() == 0:
             continue
         tb = tris_packed[:, cl * CLUSTER_SIZE:(cl + 1) * CLUSTER_SIZE]
-        t, det = _mt_tile_t(origins[:, rows], dirs[:, rows], tb)
+        t, det = pairs(origins[:, rows], dirs[:, rows], tb)
         big = torch.full_like(t, MISS)
         tf = torch.where(det > 0.0, t, big)
         tbk = torch.where(det < 0.0, t, big).min(dim=1).values
@@ -238,41 +253,53 @@ def sweep_clusters_twin(origins, dirs, tris_packed, ids, counts,
     return torch.stack(rows_out, dim=0)
 
 
+def _launch_sweep(lib_name, origins, dirs, tris_packed, ids, counts,
+                  outer_clusters, with_fwd2):
+    """Check the clustered sweep's operands and launch library `lib_name`
+    (its C entry has the library's name); returns [5 or 4, Npad]."""
+    cuda_build.check_operands(lib_name, (
+        ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
+        ("tris_packed", tris_packed, torch.float32),
+        ("ids", ids, torch.int32), ("counts", counts, torch.int32)))
+    n = origins.shape[1]
+    nb = n // BLOCK_RAYS
+    lib = cuda_build.load(lib_name)
+    out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
+                      device=origins.device)
+    p = cuda_build.ptr
+    rc = getattr(lib, lib_name)(
+        p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
+        ctypes.c_int(tris_packed.shape[1]), p(ids), p(counts),
+        ctypes.c_int(ids.shape[0] // nb), ctypes.c_int(outer_clusters),
+        ctypes.c_int(int(with_fwd2)), p(out), cuda_build.stream_of(origins))
+    cuda_build.check(lib, rc, lib_name)
+    return out
+
+
+def _check_cluster_shapes(what, origins, tris_packed):
+    if origins.shape[1] % BLOCK_RAYS or tris_packed.shape[1] % CLUSTER_SIZE:
+        raise ValueError(f"{what} needs Npad % 512 == 0 and T % 256 == 0")
+
+
 def sweep_clusters_stream(origins, dirs, tris_packed, ids, counts,
-                          outer_clusters: int, with_fwd2: bool = False):
+                          outer_clusters: int, with_fwd2: bool = False,
+                          mxu: bool | None = None):
     """origins/dirs [3, Npad] f32; tris_packed [9, (Co+Ci)*CLUSTER_SIZE] =
     outer clusters then inner clusters; ids [NB*K] / counts [NB] int32 from
     `_stream_worklist` over the concatenated cluster bounds. Returns
     [5, Npad] (4 rows without fwd2): outer_fwd, outer_bwd, inner_fwd,
     inner_bwd[, outer_fwd2], 1e30 on a miss. CPU tensors run the twin; CUDA
-    tensors launch csrc/sweep_stream.cu."""
-    n = origins.shape[1]
-    if n % BLOCK_RAYS or tris_packed.shape[1] % CLUSTER_SIZE:
-        raise ValueError("sweep_clusters_stream needs Npad % 512 == 0 and "
-                         "T % 256 == 0")
+    tensors launch csrc/sweep_stream.cu, or with `mxu` (None reads
+    NR_TRACE_MXU) `sweep_clusters_stream_mxu`."""
+    if trace_mxu.use_mxu(mxu):
+        return sweep_clusters_stream_mxu(origins, dirs, tris_packed, ids,
+                                         counts, outer_clusters, with_fwd2)
+    _check_cluster_shapes("sweep_clusters_stream", origins, tris_packed)
     if not origins.is_cuda:
         return sweep_clusters_twin(origins, dirs, tris_packed, ids, counts,
                                    outer_clusters, with_fwd2)
-    for name, x, dt in (("origins", origins, torch.float32),
-                        ("dirs", dirs, torch.float32),
-                        ("tris_packed", tris_packed, torch.float32),
-                        ("ids", ids, torch.int32),
-                        ("counts", counts, torch.int32)):
-        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"sweep_clusters_stream: {name} must be a "
-                             f"contiguous CUDA {dt} tensor")
-    nb = n // BLOCK_RAYS
-    lib = cuda_build.load("sweep_stream")
-    out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
-                      device=origins.device)
-    p = cuda_build.ptr
-    rc = lib.sweep_stream(p(origins), p(dirs), ctypes.c_int(n),
-                          p(tris_packed), ctypes.c_int(tris_packed.shape[1]),
-                          p(ids), p(counts), ctypes.c_int(ids.shape[0] // nb),
-                          ctypes.c_int(outer_clusters),
-                          ctypes.c_int(int(with_fwd2)), p(out),
-                          cuda_build.stream_of(origins))
-    cuda_build.check(lib, rc, "sweep_stream")
+    out = _launch_sweep("sweep_stream", origins, dirs, tris_packed, ids,
+                        counts, outer_clusters, with_fwd2)
     sweep_clusters_stream.launches += 1
     return out
 
@@ -280,13 +307,32 @@ def sweep_clusters_stream(origins, dirs, tris_packed, ids, counts,
 sweep_clusters_stream.launches = 0
 
 
+def sweep_clusters_stream_mxu(origins, dirs, tris_packed, ids, counts,
+                              outer_clusters: int, with_fwd2: bool = False):
+    """`sweep_clusters_stream` in the matrix formulation, the same
+    contract. CPU tensors run `sweep_clusters_twin(..., mxu=True)`; CUDA
+    tensors launch csrc/sweep_stream_mxu.cu."""
+    _check_cluster_shapes("sweep_clusters_stream_mxu", origins, tris_packed)
+    if not origins.is_cuda:
+        return sweep_clusters_twin(origins, dirs, tris_packed, ids, counts,
+                                   outer_clusters, with_fwd2, mxu=True)
+    out = _launch_sweep("sweep_stream_mxu", origins, dirs, tris_packed, ids,
+                        counts, outer_clusters, with_fwd2)
+    sweep_clusters_stream_mxu.launches += 1
+    return out
+
+
+sweep_clusters_stream_mxu.launches = 0
+
+
 def trace_clusters_twin(origins, dirs, tris_packed, ids, tmins, counts,
                         exit_t, mode: int, early_out: bool = True,
-                        swept_out=None):
+                        swept_out=None, mxu: bool = False):
     """Plain-PyTorch twin of the clustered closest-hit kernel: (best_t
     [Npad] f32, best_tri [Npad] int32). All blocks step through their
     worklists together, slot by slot; a block that has broken out (or run
-    out) drops from the step. Smallest triangle id among equal t."""
+    out) drops from the step. Smallest triangle id among equal t. `mxu`
+    evaluates the pairs in the matrix formulation."""
     n = origins.shape[1]
     nb = n // BLOCK_RAYS
     dev = origins.device
@@ -307,8 +353,12 @@ def trace_clusters_twin(origins, dirs, tris_packed, ids, tmins, counts,
     while bool(going.any()):
         live = torch.nonzero(going).squeeze(1)
         cl = ids2[live, j]                                   # [L]
-        tb = tiles[:, cl][:, :, None, :]                     # [9, L, 1, 256]
-        t, det = _mt_pairs(o[:, live][..., None], d[:, live][..., None], tb)
+        if mxu:
+            t, det = trace_mxu.mxu_tile_t(o[:, live], d[:, live],
+                                          tiles[:, cl])      # [L, 512, 256]
+        else:
+            t, det = _mt_pairs(o[:, live][..., None], d[:, live][..., None],
+                               tiles[:, cl][:, :, None, :])
         t = _mode_cull(t, det, mode)                         # [L, 512, 256]
         tc = t.min(dim=2).values
         first = torch.where(t == tc[..., None], lane,
@@ -332,23 +382,10 @@ def trace_clusters_twin(origins, dirs, tris_packed, ids, tmins, counts,
     return best_t.reshape(-1), best_tri.reshape(-1).to(torch.int32)
 
 
-def trace_clusters_stream(origins, dirs, tris_packed, ids, tmins, counts,
-                          exit_t, mode: int, early_out: bool = True,
-                          swept_out=None):
-    """origins/dirs [3, Npad] f32; tris_packed [9, C*CLUSTER_SIZE] f32;
-    ids/tmins [NB*K] + counts [NB] from `_stream_worklist` (front to back);
-    exit_t [Npad] from `mesh_exit_t`. Returns (best_t [Npad] f32, 1e30 on a
-    miss, best_tri [Npad] int32, 0 on a miss). `early_out=False` sweeps every
-    listed cluster (same result, more work); `swept_out` ([NB] int32), when
-    given, receives the clusters each block swept. CPU tensors run the twin;
-    CUDA tensors launch csrc/trace_cluster_stream.cu."""
-    n = origins.shape[1]
-    if n % BLOCK_RAYS or tris_packed.shape[1] % CLUSTER_SIZE:
-        raise ValueError("trace_clusters_stream needs Npad % 512 == 0 and "
-                         "T % 256 == 0")
-    if not origins.is_cuda:
-        return trace_clusters_twin(origins, dirs, tris_packed, ids, tmins,
-                                   counts, exit_t, mode, early_out, swept_out)
+def _launch_trace(lib_name, origins, dirs, tris_packed, ids, tmins, counts,
+                  exit_t, mode, early_out, swept_out):
+    """Check the clustered trace's operands and launch library `lib_name`
+    (its C entry has the library's name); returns (best_t, best_tri)."""
     checks = [("origins", origins, torch.float32),
               ("dirs", dirs, torch.float32),
               ("tris_packed", tris_packed, torch.float32),
@@ -357,16 +394,14 @@ def trace_clusters_stream(origins, dirs, tris_packed, ids, tmins, counts,
               ("exit_t", exit_t, torch.float32)]
     if swept_out is not None:
         checks.append(("swept_out", swept_out, torch.int32))
-    for name, x, dt in checks:
-        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"trace_clusters_stream: {name} must be a "
-                             f"contiguous CUDA {dt} tensor")
+    cuda_build.check_operands(lib_name, checks)
+    n = origins.shape[1]
     nb = n // BLOCK_RAYS
-    lib = cuda_build.load("trace_cluster_stream")
+    lib = cuda_build.load(lib_name)
     best_t = torch.empty((n,), dtype=torch.float32, device=origins.device)
     best_tri = torch.empty((n,), dtype=torch.int32, device=origins.device)
     p = cuda_build.ptr
-    rc = lib.trace_cluster_stream(
+    rc = getattr(lib, lib_name)(
         p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
         ctypes.c_int(tris_packed.shape[1]), p(ids), p(tmins), p(counts),
         ctypes.c_int(ids.shape[0] // max(nb, 1)), p(exit_t),
@@ -374,9 +409,50 @@ def trace_clusters_stream(origins, dirs, tris_packed, ids, tmins, counts,
         p(best_tri),
         p(swept_out) if swept_out is not None else ctypes.c_void_p(None),
         cuda_build.stream_of(origins))
-    cuda_build.check(lib, rc, "trace_cluster_stream")
-    trace_clusters_stream.launches += 1
+    cuda_build.check(lib, rc, lib_name)
     return best_t, best_tri
 
 
+def trace_clusters_stream(origins, dirs, tris_packed, ids, tmins, counts,
+                          exit_t, mode: int, early_out: bool = True,
+                          swept_out=None, mxu: bool | None = None):
+    """origins/dirs [3, Npad] f32; tris_packed [9, C*CLUSTER_SIZE] f32;
+    ids/tmins [NB*K] + counts [NB] from `_stream_worklist` (front to back);
+    exit_t [Npad] from `mesh_exit_t`. Returns (best_t [Npad] f32, 1e30 on a
+    miss, best_tri [Npad] int32, 0 on a miss). `early_out=False` sweeps every
+    listed cluster (same result, more work); `swept_out` ([NB] int32), when
+    given, receives the clusters each block swept. CPU tensors run the twin;
+    CUDA tensors launch csrc/trace_cluster_stream.cu, or with `mxu` (None
+    reads NR_TRACE_MXU) `trace_clusters_stream_mxu`."""
+    args = (origins, dirs, tris_packed, ids, tmins, counts, exit_t, mode,
+            early_out, swept_out)
+    if trace_mxu.use_mxu(mxu):
+        return trace_clusters_stream_mxu(*args)
+    _check_cluster_shapes("trace_clusters_stream", origins, tris_packed)
+    if not origins.is_cuda:
+        return trace_clusters_twin(*args)
+    out = _launch_trace("trace_cluster_stream", *args)
+    trace_clusters_stream.launches += 1
+    return out
+
+
 trace_clusters_stream.launches = 0
+
+
+def trace_clusters_stream_mxu(origins, dirs, tris_packed, ids, tmins, counts,
+                              exit_t, mode: int, early_out: bool = True,
+                              swept_out=None):
+    """`trace_clusters_stream` in the matrix formulation, the same
+    contract. CPU tensors run `trace_clusters_twin(..., mxu=True)`; CUDA
+    tensors launch csrc/trace_cluster_stream_mxu.cu."""
+    args = (origins, dirs, tris_packed, ids, tmins, counts, exit_t, mode,
+            early_out, swept_out)
+    _check_cluster_shapes("trace_clusters_stream_mxu", origins, tris_packed)
+    if not origins.is_cuda:
+        return trace_clusters_twin(*args, mxu=True)
+    out = _launch_trace("trace_cluster_stream_mxu", *args)
+    trace_clusters_stream_mxu.launches += 1
+    return out
+
+
+trace_clusters_stream_mxu.launches = 0

@@ -23,6 +23,17 @@ the strict forward pair and the backward min, inner tiles the two mins, all
 in registers. Bound on the card: FP32 operations, ~45 per pair over the
 live blocks x the shells' real triangles. Bit-exact to
 `sweep_shells_dense_twin`.
+
+With `NR_TRACE_MXU=1` (or `mxu=True`) both wrappers take the matrix
+formulation of `ops/trace_mxu.py`: `trace_dense` the kernel
+`csrc/trace_dense_mxu.cu` (TPU kernel K8, `trace_mxu.py::_mxu_kernel`),
+`sweep_shells_dense` the kernel `csrc/sweep_dense_mxu.cu`, which replaces
+the `mxu=True` body of `_sweep_block_body` (`trace_pallas.py:200-230`):
+the same rows, block shape and skip flag, the pair math as FP64
+tensor-core products with an FP32 epilogue (csrc/mt_mxu.cuh). Bound on the
+card: the FP64 tensor products, the function's 38 flops per pair of the
+live blocks (48 as issued) against 67 TFLOP/s; the twins are
+`trace_dense_twin` and `sweep_shells_dense_twin` with `mxu=True`.
 """
 
 from __future__ import annotations
@@ -110,17 +121,21 @@ def _mode_cull(t, det, mode: int):
     return t
 
 
-def trace_dense_twin(origins, dirs, tris_packed, mode: int, block_mask):
+def trace_dense_twin(origins, dirs, tris_packed, mode: int, block_mask,
+                     mxu: bool = False):
     """Plain-PyTorch twin of the dense trace kernel: the same outputs,
     [2, Npad] f32 (row 0 best t, 1e30 on miss; row 1 the best triangle id
     bitcast to f32, the smallest id among equal t; blocks with a 0 skip flag
-    report a miss with id 0)."""
+    report a miss with id 0). `mxu` evaluates the pairs in the matrix
+    formulation (`trace_mxu.mxu_tile_t`)."""
+    from . import trace_mxu
+    pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
     n = origins.shape[1]
     best_t = torch.full((n,), MISS, dtype=torch.float32,
                         device=origins.device)
     best_tri = torch.zeros((n,), dtype=torch.int32, device=origins.device)
     for c in range(0, tris_packed.shape[1], TRI_TILE):
-        t, det = _mt_tile_t(origins, dirs, tris_packed[:, c:c + TRI_TILE])
+        t, det = pairs(origins, dirs, tris_packed[:, c:c + TRI_TILE])
         t = _mode_cull(t, det, mode)
         tc, ci = t.min(dim=1)     # first index among equal minima
         better = tc < best_t
@@ -132,34 +147,51 @@ def trace_dense_twin(origins, dirs, tris_packed, mode: int, block_mask):
     return torch.stack([best_t, best_tri.view(torch.float32)], dim=0)
 
 
-def trace_dense(origins, dirs, tris_packed, mode: int, block_mask):
+def _check_trace_dense(what, origins, tris_packed):
+    n = origins.shape[1]
+    if n % BLOCK_RAYS or tris_packed.shape[1] % TRI_TILE:
+        raise ValueError(f"{what} needs Npad % {BLOCK_RAYS} == 0 and "
+                         f"T % {TRI_TILE} == 0, got {n}, "
+                         f"{tris_packed.shape[1]}")
+
+
+def _launch_trace_dense(lib_name, origins, dirs, tris_packed, mode,
+                        block_mask):
+    """Check the dense trace's operands and launch library `lib_name` (its
+    C entry has the library's name); returns [2, Npad]."""
+    cuda_build.check_operands(lib_name, (
+        ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
+        ("tris_packed", tris_packed, torch.float32),
+        ("block_mask", block_mask, torch.int32)))
+    n = origins.shape[1]
+    lib = cuda_build.load(lib_name)
+    out = torch.empty((2, n), dtype=torch.float32, device=origins.device)
+    p = cuda_build.ptr
+    rc = getattr(lib, lib_name)(
+        p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
+        ctypes.c_int(tris_packed.shape[1]), p(block_mask),
+        ctypes.c_int(mode), p(out), cuda_build.stream_of(origins))
+    cuda_build.check(lib, rc, lib_name)
+    return out
+
+
+def trace_dense(origins, dirs, tris_packed, mode: int, block_mask,
+                mxu: bool | None = None):
     """origins/dirs [3, Npad] f32 (Npad a multiple of BLOCK_RAYS);
     tris_packed [9, T] f32 with T a multiple of TRI_TILE; block_mask
     [Npad / BLOCK_RAYS] int32 skip flags. Returns [2, Npad] f32 (see
     trace_dense_twin). CPU tensors run the twin; CUDA tensors launch
-    csrc/trace_dense.cu."""
-    n = origins.shape[1]
-    if n % BLOCK_RAYS or tris_packed.shape[1] % TRI_TILE:
-        raise ValueError(f"trace_dense needs Npad % {BLOCK_RAYS} == 0 and "
-                         f"T % {TRI_TILE} == 0, got {n}, "
-                         f"{tris_packed.shape[1]}")
+    csrc/trace_dense.cu, or with `mxu` (None reads NR_TRACE_MXU) the
+    matrix formulation `trace_mxu.trace_dense_mxu`."""
+    from . import trace_mxu
+    if trace_mxu.use_mxu(mxu):
+        return trace_mxu.trace_dense_mxu(origins, dirs, tris_packed, mode,
+                                         block_mask)
+    _check_trace_dense("trace_dense", origins, tris_packed)
     if not origins.is_cuda:
         return trace_dense_twin(origins, dirs, tris_packed, mode, block_mask)
-    for name, x, dt in (("origins", origins, torch.float32),
-                        ("dirs", dirs, torch.float32),
-                        ("tris_packed", tris_packed, torch.float32),
-                        ("block_mask", block_mask, torch.int32)):
-        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"trace_dense: {name} must be a contiguous "
-                             f"CUDA {dt} tensor")
-    lib = cuda_build.load("trace_dense")
-    out = torch.empty((2, n), dtype=torch.float32, device=origins.device)
-    p = cuda_build.ptr
-    rc = lib.trace_dense(p(origins), p(dirs), ctypes.c_int(n),
-                         p(tris_packed), ctypes.c_int(tris_packed.shape[1]),
-                         p(block_mask), ctypes.c_int(mode), p(out),
-                         cuda_build.stream_of(origins))
-    cuda_build.check(lib, rc, "trace_dense")
+    out = _launch_trace_dense("trace_dense", origins, dirs, tris_packed, mode,
+                              block_mask)
     trace_dense.launches += 1
     return out
 
@@ -168,16 +200,18 @@ trace_dense.launches = 0
 
 
 def sweep_shells_dense_twin(origins, dirs, tris_packed, outer_cols: int,
-                            with_fwd2: bool, block_mask):
+                            with_fwd2: bool, block_mask, mxu: bool = False):
     """Plain-PyTorch twin of the dense dual-shell sweep kernel: [5 or 4,
     Npad] f32 rows outer_fwd, outer_bwd, inner_fwd, inner_bwd[, outer_fwd2],
-    1e30 on a miss and in blocks whose skip flag is 0."""
+    1e30 on a miss and in blocks whose skip flag is 0. `mxu` evaluates the
+    pairs in the matrix formulation (`trace_mxu.mxu_tile_t`)."""
+    from . import trace_mxu
+    pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
     n = origins.shape[1]
     miss = torch.full((n,), MISS, dtype=torch.float32, device=origins.device)
     m1f, m2f, m1b, i1f, i1b = miss, miss, miss, miss, miss
     for c in range(0, tris_packed.shape[1], SWEEP_TRI_TILE):
-        t, det = _mt_tile_t(origins, dirs,
-                            tris_packed[:, c:c + SWEEP_TRI_TILE])
+        t, det = pairs(origins, dirs, tris_packed[:, c:c + SWEEP_TRI_TILE])
         big = torch.full_like(t, MISS)
         tf = torch.where(det > 0.0, t, big)
         tbk = torch.where(det < 0.0, t, big).min(dim=1).values
@@ -198,42 +232,75 @@ def sweep_shells_dense_twin(origins, dirs, tris_packed, outer_cols: int,
     return torch.where(live[None, :], rows, torch.full_like(rows, MISS))
 
 
+def _check_sweep_dense(what, origins, tris_packed, outer_cols):
+    n = origins.shape[1]
+    if n % BLOCK_RAYS or tris_packed.shape[1] % SWEEP_TRI_TILE \
+            or outer_cols % SWEEP_TRI_TILE:
+        raise ValueError(f"{what} needs Npad % {BLOCK_RAYS} == 0 and whole "
+                         f"{SWEEP_TRI_TILE}-triangle tiles, got {n}, "
+                         f"{tris_packed.shape[1]}, {outer_cols}")
+
+
+def _launch_sweep_dense(lib_name, origins, dirs, tris_packed, outer_cols,
+                        with_fwd2, block_mask):
+    """Check the dense sweep's operands and launch library `lib_name` (its
+    C entry has the library's name); returns [5 or 4, Npad]."""
+    cuda_build.check_operands(lib_name, (
+        ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
+        ("tris_packed", tris_packed, torch.float32),
+        ("block_mask", block_mask, torch.int32)))
+    n = origins.shape[1]
+    lib = cuda_build.load(lib_name)
+    out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
+                      device=origins.device)
+    p = cuda_build.ptr
+    rc = getattr(lib, lib_name)(
+        p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
+        ctypes.c_int(tris_packed.shape[1]), ctypes.c_int(outer_cols),
+        p(block_mask), ctypes.c_int(int(with_fwd2)), p(out),
+        cuda_build.stream_of(origins))
+    cuda_build.check(lib, rc, lib_name)
+    return out
+
+
 def sweep_shells_dense(origins, dirs, tris_packed, outer_cols: int,
-                       with_fwd2: bool, block_mask):
+                       with_fwd2: bool, block_mask, mxu: bool | None = None):
     """origins/dirs [3, Npad] f32 (Npad a multiple of BLOCK_RAYS);
     tris_packed [9, T] = outer shell (outer_cols columns) then inner shell,
     each padded to whole SWEEP_TRI_TILE tiles; block_mask [Npad /
     BLOCK_RAYS] int32 skip flags. Returns [5, Npad] (4 rows without fwd2),
     see sweep_shells_dense_twin. CPU tensors run the twin; CUDA tensors
-    launch csrc/sweep_dense.cu."""
-    n = origins.shape[1]
-    if n % BLOCK_RAYS or tris_packed.shape[1] % SWEEP_TRI_TILE \
-            or outer_cols % SWEEP_TRI_TILE:
-        raise ValueError(f"sweep_shells_dense needs Npad % {BLOCK_RAYS} == 0 "
-                         f"and whole {SWEEP_TRI_TILE}-triangle tiles, got "
-                         f"{n}, {tris_packed.shape[1]}, {outer_cols}")
+    launch csrc/sweep_dense.cu, or with `mxu` (None reads NR_TRACE_MXU)
+    `sweep_shells_dense_mxu`."""
+    from . import trace_mxu
+    args = (origins, dirs, tris_packed, outer_cols, with_fwd2, block_mask)
+    if trace_mxu.use_mxu(mxu):
+        return sweep_shells_dense_mxu(*args)
+    _check_sweep_dense("sweep_shells_dense", origins, tris_packed,
+                       outer_cols)
     if not origins.is_cuda:
-        return sweep_shells_dense_twin(origins, dirs, tris_packed, outer_cols,
-                                       with_fwd2, block_mask)
-    for name, x, dt in (("origins", origins, torch.float32),
-                        ("dirs", dirs, torch.float32),
-                        ("tris_packed", tris_packed, torch.float32),
-                        ("block_mask", block_mask, torch.int32)):
-        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"sweep_shells_dense: {name} must be a "
-                             f"contiguous CUDA {dt} tensor")
-    lib = cuda_build.load("sweep_dense")
-    out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
-                      device=origins.device)
-    p = cuda_build.ptr
-    rc = lib.sweep_dense(p(origins), p(dirs), ctypes.c_int(n),
-                         p(tris_packed), ctypes.c_int(tris_packed.shape[1]),
-                         ctypes.c_int(outer_cols), p(block_mask),
-                         ctypes.c_int(int(with_fwd2)), p(out),
-                         cuda_build.stream_of(origins))
-    cuda_build.check(lib, rc, "sweep_dense")
+        return sweep_shells_dense_twin(*args)
+    out = _launch_sweep_dense("sweep_dense", *args)
     sweep_shells_dense.launches += 1
     return out
 
 
 sweep_shells_dense.launches = 0
+
+
+def sweep_shells_dense_mxu(origins, dirs, tris_packed, outer_cols: int,
+                           with_fwd2: bool, block_mask):
+    """`sweep_shells_dense` in the matrix formulation, the same contract.
+    CPU tensors run `sweep_shells_dense_twin(..., mxu=True)`; CUDA tensors
+    launch csrc/sweep_dense_mxu.cu."""
+    args = (origins, dirs, tris_packed, outer_cols, with_fwd2, block_mask)
+    _check_sweep_dense("sweep_shells_dense_mxu", origins, tris_packed,
+                       outer_cols)
+    if not origins.is_cuda:
+        return sweep_shells_dense_twin(*args, mxu=True)
+    out = _launch_sweep_dense("sweep_dense_mxu", *args)
+    sweep_shells_dense_mxu.launches += 1
+    return out
+
+
+sweep_shells_dense_mxu.launches = 0

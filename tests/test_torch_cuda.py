@@ -13,18 +13,26 @@ so it is held to max|d| / max|twin| < 2e-2, as is the fused MLP kernel of
 tcnn-layout networks (tensor-core sums); the training backward kernel
 adds its f32 sums by atomics in no fixed order, so each gradient is held to
 1e-3 of the twin's largest |grad|; whole frames to
-tests/test_frame_interpret.py's tolerance.
+tests/test_frame_interpret.py's tolerance. The matrix-formulation kernels
+(NR_TRACE_MXU=1) take their products on the tensor cores in another order
+than the twins' f32 matmuls: they are held to the JAX package's own
+kernel-against-twin bounds (hit flips under 2e-3, t within 1e-6 relative
+and absolute where both hit, ids equal on 99.9%), and to its
+MXU-against-oracle bounds against the default kernels (t within 1e-5
+relative and, for the dense trace in all three modes, 1e-5 absolute with
+ids equal on 99.9%; for the sweeps and the clustered trace 1e-6 absolute
+with ids equal on 99%).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from neural_renderer_tpu_torch.models import nbvh
+from neural_renderer_tpu_torch.models import convert, nbvh
 from neural_renderer_tpu_torch.ops import (fused_network, lane_grid_kernel,
                                            lane_grid_train_kernel,
-                                           trace_cluster, trace_pallas,
-                                           traversal)
+                                           trace_cluster, trace_mxu,
+                                           trace_pallas, traversal)
 from neural_renderer_tpu_torch.render import neural_frame
 from neural_renderer_tpu_torch.render.neural_march import NeuralContext
 from neural_renderer_tpu_torch.render.params import RenderParams
@@ -141,6 +149,148 @@ def test_dense_sweep_kernel_bit_exact(cuda, with_fwd2):
         assert (ker[0] < 1e30).sum() > 500
 
 
+# The matrix formulation (NR_TRACE_MXU=1): kernels against their twins to
+# the JAX package's kernel-against-twin bounds (tests/test_trace_mxu.py:
+# 128-136), and against the default kernels to its MXU-against-oracle
+# bounds: the dense trace's in all three modes (:73-83), the sweeps' and
+# the two-level trace's (:161-165, :204-212).
+_TWIN_BOUNDS = dict(rtol=1e-6, atol=1e-6, ids=0.999)
+_DENSE_VPU_BOUNDS = dict(rtol=1e-5, atol=1e-5, ids=0.999)
+_VPU_BOUNDS = dict(rtol=1e-5, atol=1e-6, ids=0.99)
+
+
+def _hold(t_a, t_b, bounds, ids_a=None, ids_b=None, min_hits=200):
+    a = trace_mxu.agreement(t_a, t_b, ids_a, ids_b, bounds["rtol"],
+                            bounds["atol"])
+    assert a["flips"] < 2e-3 and a["both"] >= min_hits, a
+    assert a["within"] and a["ids"] >= bounds["ids"], a
+
+
+def _hold_rows(a, b, bounds):
+    for row in range(a.shape[0]):
+        _hold(a[row], b[row], bounds, min_hits=0)
+
+
+@pytest.mark.parametrize("mode", [traversal.ANY, traversal.FORWARD_ONLY,
+                                  traversal.BACKWARD_ONLY])
+def test_dense_mxu_kernel_matches_twin(cuda, mode):
+    """K8 against its twin and against K3 on the same operands."""
+    outer, _ = _shells(cuda)
+    o, d = _rays(cuda, n=4000)
+    active = torch.rand(4000, generator=torch.Generator().manual_seed(1)) \
+        .to(cuda) < 0.9
+    ops = traversal.dense_trace_operands(outer, o, d, active)
+    before = trace_mxu.trace_dense_mxu.launches
+    ker = trace_pallas.trace_dense(*ops[:3], mode, ops[3], mxu=True)
+    assert trace_mxu.trace_dense_mxu.launches == before + 1
+    twin = trace_pallas.trace_dense_twin(*ops[:3], mode, ops[3], mxu=True)
+    vpu = trace_pallas.trace_dense(*ops[:3], mode, ops[3], mxu=False)
+    ids = [x[1].view(torch.int32) for x in (ker, twin, vpu)]
+    _hold(ker[0], twin[0], _TWIN_BOUNDS, ids[0], ids[1])
+    _hold(ker[0], vpu[0], _DENSE_VPU_BOUNDS, ids[0], ids[2])
+
+
+@pytest.mark.parametrize("with_fwd2", [True, False])
+def test_sweep_mxu_kernel_matches_twin(cuda, with_fwd2, monkeypatch):
+    """K1-MXU, reached through NR_TRACE_MXU=1, against its twin and K1."""
+    outer, inner = _shells(cuda)
+    ops = traversal.clustered_sweep_operands(outer, inner, *_rays(cuda))
+    monkeypatch.setenv("NR_TRACE_MXU", "1")
+    before = trace_cluster.sweep_clusters_stream_mxu.launches
+    ker = trace_cluster.sweep_clusters_stream(*ops, with_fwd2=with_fwd2)
+    assert trace_cluster.sweep_clusters_stream_mxu.launches == before + 1
+    twin = trace_cluster.sweep_clusters_twin(*ops, with_fwd2, mxu=True)
+    vpu = trace_cluster.sweep_clusters_stream(*ops, with_fwd2=with_fwd2,
+                                              mxu=False)
+    assert ker.shape[0] == (5 if with_fwd2 else 4)
+    assert (ker[0] < 1e30).sum() > 500
+    _hold_rows(ker, twin, _TWIN_BOUNDS)
+    _hold_rows(ker, vpu, _VPU_BOUNDS)
+
+
+@pytest.mark.parametrize("early_out", [True, False])
+@pytest.mark.parametrize("mode", [traversal.ANY, traversal.FORWARD_ONLY])
+def test_clustered_trace_mxu_kernel_matches_twin(cuda, mode, early_out):
+    """K5-MXU on a 9,216-triangle sphere against its twin and K5."""
+    mesh = outward_sphere(48, 96, 1.0).to_tensors(cuda)
+    o, d = _rays(cuda, n=4000, seed=11)
+    order = traversal._ray_sort_order(o, d, None)
+    ops = traversal.clustered_trace_operands(mesh, o[:, order], d[:, order])
+    args = ops[:7]
+    before = trace_cluster.trace_clusters_stream_mxu.launches
+    kt, ktri = trace_cluster.trace_clusters_stream(*args, mode, early_out,
+                                                   mxu=True)
+    assert trace_cluster.trace_clusters_stream_mxu.launches == before + 1
+    tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, early_out,
+                                                 mxu=True)
+    vt, vtri = trace_cluster.trace_clusters_stream(*args, mode, early_out,
+                                                   mxu=False)
+    _hold(kt, tt, _TWIN_BOUNDS, ktri, ttri, min_hits=500)
+    _hold(kt, vt, _VPU_BOUNDS, ktri, vtri, min_hits=500)
+
+
+@pytest.mark.parametrize("with_fwd2", [True, False])
+def test_dense_sweep_mxu_kernel_matches_twin(cuda, with_fwd2):
+    """K4-MXU on small shells, with a dead block, against its twin and K4."""
+    outer = outward_sphere(16, 32, 1.2).to_tensors(cuda)
+    inner = outward_sphere(16, 32, 0.8).to_tensors(cuda)
+    o, d = _rays(cuda, n=4000)
+    o[:, -600:] = 3.0 * d[:, -600:]          # pointing away: a dead block
+    ops = traversal.dense_sweep_operands(outer, inner, o, d)
+    before = trace_pallas.sweep_shells_dense_mxu.launches
+    ker = trace_pallas.sweep_shells_dense(*ops[:4], with_fwd2, ops[4],
+                                          mxu=True)
+    assert trace_pallas.sweep_shells_dense_mxu.launches == before + 1
+    twin = trace_pallas.sweep_shells_dense_twin(*ops[:4], with_fwd2, ops[4],
+                                                mxu=True)
+    vpu = trace_pallas.sweep_shells_dense(*ops[:4], with_fwd2, ops[4],
+                                          mxu=False)
+    assert (ker[0] < 1e30).sum() > 500
+    _hold_rows(ker, twin, _TWIN_BOUNDS)
+    _hold_rows(ker, vpu, _VPU_BOUNDS)
+
+
+def _two_lobes(device, stacks):
+    """Two spheres of radius 0.5 at x = -0.6 and 0.6: a non-convex outer
+    shell that rays along x cross forward twice."""
+    tp = outward_sphere(stacks, 2 * stacks, 0.5).to_tensors("cpu")
+    tp = tp.tris_packed[:, :tp.num_triangles].numpy()
+    a, b = tp.copy(), tp.copy()
+    a[0] -= 0.6
+    b[0] += 0.6
+    return convert.mesh_from_numpy(np.concatenate([a, b], axis=1),
+                                   2 * tp.shape[1], device=device)
+
+
+def test_sweep_mxu_kernels_second_crossing(cuda):
+    """The strict second forward row of K1-MXU and K4-MXU, on a two-lobe
+    outer shell with rays along its axis."""
+    r = np.random.default_rng(23)
+    o = np.stack([np.full(4096, -3.0), *r.uniform(-0.3, 0.3, (2, 4096))])
+    d = np.stack([np.ones(4096), *r.uniform(-0.05, 0.05, (2, 4096))])
+    o = torch.as_tensor(o.astype(np.float32), device=cuda)
+    d = torch.as_tensor((d / np.linalg.norm(d, axis=0)).astype(np.float32),
+                        device=cuda)
+    inner = outward_sphere(4, 8, 0.3).to_tensors(cuda)
+    outer = _two_lobes(cuda, 24)
+    ops = traversal.clustered_sweep_operands(outer, inner, o, d)
+    ker = trace_cluster.sweep_clusters_stream(*ops, with_fwd2=True, mxu=True)
+    twin = trace_cluster.sweep_clusters_twin(*ops, True, mxu=True)
+    vpu = trace_cluster.sweep_clusters_stream(*ops, with_fwd2=True,
+                                              mxu=False)
+    assert (ker[4] < 1e30).sum() > 3000
+    _hold_rows(ker, twin, _TWIN_BOUNDS)
+    _hold_rows(ker, vpu, _VPU_BOUNDS)
+    ops = traversal.dense_sweep_operands(_two_lobes(cuda, 8), inner, o, d)
+    ker = trace_pallas.sweep_shells_dense(*ops[:4], True, ops[4], mxu=True)
+    twin = trace_pallas.sweep_shells_dense_twin(*ops[:4], True, ops[4],
+                                                mxu=True)
+    vpu = trace_pallas.sweep_shells_dense(*ops[:4], True, ops[4], mxu=False)
+    assert (ker[4] < 1e30).sum() > 3000
+    _hold_rows(ker, twin, _TWIN_BOUNDS)
+    _hold_rows(ker, vpu, _VPU_BOUNDS)
+
+
 @pytest.mark.parametrize("entry_pack", [1, 2])
 def test_network_kernel_matches_twin(cuda, entry_pack):
     cfg = nbvh.NbvhConfig(lane_sublanes=16, lane_entry_pack=entry_pack)
@@ -237,10 +387,12 @@ def test_train_steps_on_card(cuda):
     assert lane_grid_train_kernel.backward_lane.launches == k6 + 3
 
 
-def test_frame_matches_twin_frame(cuda):
+@pytest.mark.parametrize("mxu", [False, True])
+def test_frame_matches_twin_frame(cuda, mxu, monkeypatch):
     """The frame through the CUDA kernels against the same frame through
-    the twins on the CPU: under 2% of pixels off by more than 3, mean
-    difference under 1.0."""
+    the twins on the CPU, in both trace formulations (NR_TRACE_MXU): under
+    2% of pixels off by more than 3, mean difference under 1.0."""
+    monkeypatch.setenv("NR_TRACE_MXU", "1" if mxu else "0")
     w, h = 128, 96
     imgs = []
     for dev in (cuda, torch.device("cpu")):

@@ -176,8 +176,8 @@ def test_sample_bounce_directions(first_bounce):
 def test_import_without_jax():
     """The port imports with JAX, the JAX package, imageio, matplotlib,
     orbax and optax made unimportable (sys.modules[name] = None), every
-    module of the package included (train, cli.train and
-    ops.fused_network among them)."""
+    module of the package included (train, cli.train, ops.fused_network
+    and ops.trace_mxu among them)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'neural_renderer_tpu', 'imageio', 'matplotlib',"
@@ -187,7 +187,8 @@ def test_import_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    p.__path__, p.__name__ + '.')]\n"
         "assert {p.__name__ + '.train', p.__name__ + '.cli.train', "
-        "p.__name__ + '.ops.fused_network'} <= set(names)\n"
+        "p.__name__ + '.ops.fused_network', p.__name__ + '.ops.trace_mxu'}"
+        " <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")

@@ -7,7 +7,10 @@ entries equal the JAX XLA path's f32 ones. 32x24, 1 spp, 2 bounces. The
 JAX frame runs under `jax.disable_jit()`: op by op it takes ~11 s where its
 jit compile alone took 26-52 s, and it rounds like the port's eager ops.
 Held to the cross-backend tolerance of tests/test_golden.py:99-101: max u8
-difference <= 2, under 5% of pixels differ. The CUDA frame is held to the twin frame on the GPU by
+difference <= 2, under 5% of pixels differ. The same frame with
+NR_TRACE_MXU=1 (the matrix formulation of every trace and sweep) is held to
+the same JAX frame within tests/test_frame_interpret.py::_compare's bounds.
+The CUDA frame is held to the twin frame on the GPU by
 tests/test_torch_cuda.py.
 """
 
@@ -76,7 +79,9 @@ def _port_params(scene, w, h, bounces, device):
                              **_CAM, **scene[5])
 
 
-def test_frame_matches_jax(scene):
+@pytest.fixture(scope="module")
+def jax_frame(scene):
+    """The JAX package's frame of the default path, run op by op."""
     _, oa, ia, jcfg, jp, bounds = scene
     w, h = 32, 24
     jm = JMaterial.default()
@@ -86,18 +91,36 @@ def test_frame_matches_jax(scene):
     with jax.disable_jit():
         ref, _ = jframe(ctx, Mesh().to_arrays(), EnvironmentMap().to_arrays(),
                         jparams, jnp.zeros((3, w * h), jnp.float32))
-        ref = np.asarray(ref)
+    return np.asarray(ref)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_frame_matches_jax(scene, jax_frame, mxu, monkeypatch):
+    """The port's frame against the JAX frame of the default path. With
+    NR_TRACE_MXU=1 the port traces in the matrix formulation and is held to
+    tests/test_frame_interpret.py::_compare's bounds (under 2% of pixels off
+    by more than 3 u8 steps, mean difference under 1), the bounds to which
+    JAX's own test_neural_frame_full_tpu_path[mxu] holds its MXU frame
+    against the same reference. The JAX MXU frame itself runs only on the
+    TPU branch, forced there in Pallas interpret mode: 93.6 s on the CPU
+    (the ground-truth one 11.6 s), beyond this file's budget."""
+    monkeypatch.setenv("NR_TRACE_MXU", "1" if mxu else "0")
+    w, h = 32, 24
     img, accum = neural_frame.render_neural_frame(
         _port_ctx(scene, "cpu"), EnvironmentTensors.from_numpy(None,
                                                                device="cpu"),
         _port_params(scene, w, h, 2, "cpu"), torch.zeros((3, w * h)))
     assert img.dtype == torch.uint8 and tuple(img.shape) == (h, w, 3)
     assert torch.isfinite(accum).all()
-    diff = np.abs(img.numpy().astype(int) - ref.astype(int))
-    print(f"max u8 difference {diff.max()}, share of pixels differing "
-          f"{(diff.sum(axis=-1) > 0).mean():.4f}")
-    assert diff.max() <= 2
-    assert (diff.sum(axis=-1) > 0).mean() < 0.05
+    diff = np.abs(img.numpy().astype(int) - jax_frame.astype(int))
+    print(f"mxu {mxu}: max u8 difference {diff.max()}, share of pixels "
+          f"differing {(diff.sum(axis=-1) > 0).mean():.4f}, share off by "
+          f"more than 3 {(diff > 3).mean():.4f}, mean {diff.mean():.4f}")
+    if mxu:
+        assert (diff > 3).mean() < 0.02 and diff.mean() < 1.0
+    else:
+        assert diff.max() <= 2
+        assert (diff.sum(axis=-1) > 0).mean() < 0.05
 
 
 def test_compaction_equals_full_batch(scene):
