@@ -92,7 +92,22 @@ its training. Phases, each failing the run:
  19. with NR_TRACE_MXU=1, run `evaluate` on the knot at 480x270 x 64 and
      hold it to phase 7's gate (K5-MXU and K1-MXU must launch, K5 and K1
      not at all), and render the small-shell scene through K4-MXU and
-     through its twin (phase 3's bounds).
+     through its twin (phase 3's bounds);
+ 20. the trace-kernel ablation (K9): run scripts/ablate_trace_kernel_torch.py
+     over every variant of the reference's dispatch and of its sweep family
+     (9,216 triangles x 262,144 rays; sweeps 2,304 + 2,304 x 262,144), every
+     ablation launch counter set to 0 first: each new kernel must launch;
+     then hold each kernel against its twin on all the rays (bit-exact, but
+     recipx's approximate reciprocal within ABLATE_ULPS and the bf16 matrix
+     form's tensor-core sums within ABLATE_MXU_BF16) and against the
+     production kernels (`local` and the block and tile variants bit-exact
+     against K3, `recip` and `sweep_recip` too; nodiv and recipx within
+     ABLATE_ULPS; bf16 within ABLATE_BF16; mxu_hi within phase 17's bounds
+     against K3; sweep_mxu against K4 within them); time each twin;
+ 21. run `evaluate` on the shipped lane sphere (configs/sphere/
+     sphere_lane.json) at 480x270 x 64 and hold it to 1 dB under the JAX
+     record (PSNR >= 50.54 dB, mean FLIP <= 0.018); then run bench_torch.py
+     (BENCH_SKIP_CPU=1) and check its last line has bench.py's keys.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -112,13 +127,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
-PEAK_FP64_TC = 67e12  # FP64 tensor cores (NVIDIA H100 SXM data sheet)
-MT_OPS = 45          # FP32 operations per (ray, triangle) pair
-MXU_FLOPS = 38       # FP64 flops per pair the function needs (csrc/mt_mxu.cuh)
+# Every bound below is computed from the rates and operation counts of
+# neural_renderer_tpu_torch/ops/bounds.py.
 # The matrix formulation's bounds (tests/test_trace_mxu.py): its kernels
 # against their twins (:128-136); against the default kernels, the dense
 # trace (:73-83) and the sweeps and clustered trace (:161-165, :204-212).
@@ -136,6 +146,37 @@ MXU_VPU = dict(rtol=1e-5, atol=1e-6, ids=0.99)
 # the ids bound.
 MXU_KNOT_VPU = dict(rtol=5e-5, atol=5e-4, ids=0.99, t_same_id=True)
 SLICE = 131072       # rays per kernel-vs-twin comparison
+# The trace-kernel ablation (phase 20). Variants beyond the reference's
+# default list: the rest of its dispatch and of its sweep family.
+ABLATE_EXTRA = ["t512", "b256t256", "t256probe", "t256nodiv", "t1024",
+                "b1024t512", "t512probe", "sweep_mxu", "sweep_recip"]
+ABLATE_CHUNK = 32768  # rays per twin call
+# nodiv (one divide where the production math multiplies by 1/det) and
+# recipx (rcp.approx, about 1 ulp per the PTX ISA) round t differently from
+# the production math by a few ulps, and may flip a cull on an edge pair:
+# t within 1e-6 relative (8 ulps), flips and ids as phase 17's.
+ABLATE_ULPS = dict(rtol=1e-6, atol=0.0, ids=0.999)
+# bf16 keeps 8 significant bits: every rounding moves t by up to 2^-9
+# relative, bf16 culls decide edge and grazing pairs otherwise than f32 (an
+# ANY-mode ray may then take the far side), and its coarse t splits one
+# crossing at a shared edge into two values, so the sweep's strict second
+# forward crossing appears where f32 has none. Held: hit flips under 10%,
+# the median ray within 2e-2 relative. Measured on the CPU twins, which
+# the kernels equal bit for bit: flips 1.9-3.0% (4.8% on the second
+# crossing), median 3.9e-3 to 5.2e-3.
+ABLATE_BF16 = dict(flips=0.1, median_rel=2e-2)
+# The bf16 matrix form against its twin: both take the same exact products
+# of bf16 operands, the tensor core sums them in f32 with its own alignment
+# and rounding, the twin in float64 rounded once. The sum's error, a few
+# f32 ulps of its largest term, divides by det, so grazing pairs stray
+# (measured by this phase on an H100 80GB HBM3 at 700 W, largest over all
+# rays: mxu_hi3 4.8e-6 absolute, 1.7e-6 relative; mxu_lo 1.7e-3 absolute,
+# 6.7e-4 relative, on one grazing ray).
+# Held: phase 17's bounds on 99% of the rays that hit in both, every such
+# ray within 1e-2 relative (under one bf16 rounding of the operands, 2^-8),
+# hit flips under 2e-3, ids equal on 99.9%.
+ABLATE_MXU_BF16 = dict(rtol=1e-6, atol=1e-6, share=0.99, max_rel=1e-2,
+                       ids=0.999)
 
 W, H, SPP, BOUNCES = 1920, 1080, 1, 3
 
@@ -181,7 +222,8 @@ def main() -> int:
     from neural_renderer_tpu_torch.cli import evaluate
     from neural_renderer_tpu_torch.cli import train as train_cli
     from neural_renderer_tpu_torch.models import convert, nbvh
-    from neural_renderer_tpu_torch.ops import (cuda_build, fused_network,
+    from neural_renderer_tpu_torch.ops import (bounds, cuda_build,
+                                               fused_network,
                                                lane_grid_kernel,
                                                lane_grid_train_kernel,
                                                trace_cluster, trace_mxu,
@@ -323,7 +365,7 @@ def main() -> int:
         source="neural_renderer_tpu_torch/csrc/sweep_stream.cu",
         replaces="neural_renderer_tpu/ops/trace_cluster.py:443",
         max_abs_err=err1, ms=ms1, plain_ms=pms1,
-        ops=pairs1 * MT_OPS, bytes=bytes1, peak_ops=PEAK_FP32,
+        ops_seconds=bounds.trace_seconds("local", pairs1), bytes=bytes1,
         library_ms=None)
 
     ms3 = time_ms(lambda: trace_pallas.trace_dense(
@@ -337,10 +379,10 @@ def main() -> int:
         name="trace_dense (dense closest hit)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/trace_dense.cu",
         replaces="neural_renderer_tpu/ops/trace_pallas.py:44",
-        max_abs_err=err3, ms=ms3, plain_ms=pms3, ops=pairs3 * MT_OPS,
+        max_abs_err=err3, ms=ms3, plain_ms=pms3,
+        ops_seconds=bounds.trace_seconds("local", pairs3),
         bytes=nbytes(o3, d3, bm3) + 9 * 4 * outer.num_triangles
-        + 2 * 4 * o3.shape[1],
-        peak_ops=PEAK_FP32, library_ms=None)
+        + 2 * 4 * o3.shape[1], library_ms=None)
 
     ms2 = time_ms(lambda: lane_grid_kernel.forward_lane(net, x_s,
                                                         active=a_s))
@@ -372,7 +414,7 @@ def main() -> int:
         max_abs_err=err2, ms=ms2, plain_ms=pms2, ops=2 * macs * live2,
         bytes=nbytes(x_s, mask2, ops_k2.tables2d, ops_k2.w_hidden,
                      ops_k2.w_out) + 16 * 4 * SLICE,
-        peak_ops=PEAK_BF16, library_ms=lib2)
+        peak_ops=bounds.BF16_TENSOR, library_ms=lib2)
     for key in ("K1", "K2", "K3"):
         k = kernels[key]
         log(f"[time {key}] kernel {k['ms']:.4f} ms, twin "
@@ -486,11 +528,11 @@ def main() -> int:
                       reps=2)
         pairs = int(swept_k.sum().item()) * trace_cluster.CLUSTER_SIZE * 512
         entry = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms, ops=pairs * MT_OPS,
-            bytes=nbytes(*args) + 2 * 4 * kt.shape[0], peak_ops=PEAK_FP32,
-            library_ms=None)
+            max_abs_err=err, ms=ms, plain_ms=pms,
+            ops_seconds=bounds.trace_seconds("local", pairs),
+            bytes=nbytes(*args) + 2 * 4 * kt.shape[0], library_ms=None)
         log(f"[time K5 {label}] kernel {ms:.4f} ms, twin {pms:.4f} ms, "
-            f"bound {pairs * MT_OPS / PEAK_FP32 * 1e3:.4f} ms")
+            f"bound {entry['ops_seconds'] * 1e3:.4f} ms")
         return entry
 
     k5_cam = k5_case(korig, kdirs, traversal.FORWARD_ONLY, "knot camera")
@@ -537,11 +579,12 @@ def main() -> int:
         name="sweep_dense (dense dual-shell sweep)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/sweep_dense.cu",
         replaces="neural_renderer_tpu/ops/trace_pallas.py:95",
-        max_abs_err=err4, ms=ms4, plain_ms=pms4, ops=pairs4 * MT_OPS,
+        max_abs_err=err4, ms=ms4, plain_ms=pms4,
+        ops_seconds=bounds.trace_seconds("local", pairs4),
         bytes=nbytes(ops4[0], ops4[1], ops4[4]) + 9 * 4 * real_tris
-        + 5 * 4 * SLICE, peak_ops=PEAK_FP32, library_ms=None)
+        + 5 * 4 * SLICE, library_ms=None)
     log(f"[time K4] kernel {ms4:.4f} ms, twin {pms4:.4f} ms, bound "
-        f"{pairs4 * MT_OPS / PEAK_FP32 * 1e3:.4f} ms")
+        f"{kernels['K4']['ops_seconds'] * 1e3:.4f} ms")
 
     # ---- 7. evaluate on the knot ----------------------------------------
     all_counters = {
@@ -657,10 +700,10 @@ def main() -> int:
         ops=3 * 2 * macs * n9,
         bytes=nbytes(x9, g9, ops_k6.w_hidden, ops_k6.w_out)
         + 2 * nbytes(ops_k6.tables2d) + 4 * macs,
-        peak_ops=PEAK_BF16, library_ms=lib6)
+        peak_ops=bounds.BF16_TENSOR, library_ms=lib6)
     log(f"[time K6] kernel {ms6:.4f} ms, twin {pms6:.4f} ms, library "
         f"{lib6:.4f} ms, bound "
-        f"{3 * 2 * macs * n9 / PEAK_BF16 * 1e3:.4f} ms (operations)")
+        f"{3 * 2 * macs * n9 / bounds.BF16_TENSOR * 1e3:.4f} ms (operations)")
     del got6, ref6, out9, twin9, kb
 
     # ---- 10. training on the knot ---------------------------------------
@@ -810,10 +853,10 @@ def main() -> int:
         replaces="neural_renderer_tpu/ops/fused_network.py:41",
         max_abs_err=err7, ms=ms7, plain_ms=pms7, ops=2 * macs7 * SLICE,
         bytes=nbytes(rows12, w7h, w7o) + 16 * 4 * SLICE,
-        peak_ops=PEAK_BF16, library_ms=lib7)
+        peak_ops=bounds.BF16_TENSOR, library_ms=lib7)
     log(f"[time K7] kernel {ms7:.4f} ms, twin {pms7:.4f} ms, library "
-        f"{lib7:.4f} ms, bound {2 * macs7 * SLICE / PEAK_BF16 * 1e3:.4f} ms "
-        "(operations)")
+        f"{lib7:.4f} ms, bound "
+        f"{2 * macs7 * SLICE / bounds.BF16_TENSOR * 1e3:.4f} ms (operations)")
     del rows12
 
     # ---- 13. evaluate on sphere.json -------------------------------------
@@ -896,25 +939,6 @@ def main() -> int:
         f"PSNR {psnr16!r} dB, FLIP {flip16!r}")
 
     # ---- 17. the MXU kernels against twins and default kernels ----------
-    def hold(label, got, want, bounds, ids_got=None, ids_want=None):
-        a = trace_mxu.agreement(got, want, ids_got, ids_want,
-                                bounds["rtol"], bounds["atol"])
-        log(f"[{label}] hit flips {a['flips']!r}, both hit {a['both']}, "
-            f"max|dt| {a['max_abs']!r}, max rel dt {a['max_rel']!r}, ids "
-            f"equal {a['ids']!r}")
-        within = a["within"]
-        if bounds.get("t_same_id"):
-            same = ids_got == ids_want
-            s = trace_mxu.agreement(got[same], want[same],
-                                    rtol=bounds["rtol"], atol=bounds["atol"])
-            log(f"[{label}] on the same triangle: max|dt| "
-                f"{s['max_abs']!r}, max rel dt {s['max_rel']!r}")
-            within = s["within"]
-        if not (a["flips"] < 2e-3 and within
-                and a["ids"] >= bounds["ids"]):
-            raise AssertionError(f"{label}: outside {bounds}")
-        return a["max_abs"]
-
     def hold_rows(label, ker, twin, vpu):
         err = 0.0
         for row in range(ker.shape[0]):
@@ -925,14 +949,14 @@ def main() -> int:
         return err
 
     def mxu_entry(name, source, replaces, err, ms, pms, vms, pairs, nbytes_):
+        # The larger of the FP64 tensor products and the FP32 epilogue.
+        ops_s = bounds.mxu_seconds(pairs)
         log(f"[time {name}] kernel {ms:.4f} ms, twin {pms:.4f} ms, default "
-            f"kernel {vms:.4f} ms, bound "
-            f"{pairs * MXU_FLOPS / PEAK_FP64_TC * 1e3:.4f} ms")
+            f"kernel {vms:.4f} ms, bound {ops_s * 1e3:.4f} ms")
         return dict(name=name, route="cuda",
                     source="neural_renderer_tpu_torch/csrc/" + source,
                     replaces=replaces, max_abs_err=err, ms=ms, plain_ms=pms,
-                    ops=pairs * MXU_FLOPS, bytes=nbytes_,
-                    peak_ops=PEAK_FP64_TC, library_ms=None)
+                    ops_seconds=ops_s, bytes=nbytes_, library_ms=None)
 
     t17 = time.perf_counter()
     fwd = traversal.FORWARD_ONLY
@@ -1114,12 +1138,44 @@ def main() -> int:
         else:
             os.environ["NR_TRACE_MXU"] = saved_env
 
+    # ---- 20. the trace-kernel ablation (K9) -------------------------------
+    t20 = time.perf_counter()
+    ablation_phase(kernels, launches)
+    log(f"[phase 20] {time.perf_counter() - t20:.1f} s")
+
+    # ---- 21. the lane sphere's gate and the bench entry -------------------
+    t21 = time.perf_counter()
+    lane_cfg = os.path.join(ROOT, "configs", "sphere", "sphere_lane.json")
+    text = run_evaluate(evaluate, [
+        lane_cfg, "--width", "480", "--height", "270", "--output",
+        os.path.join(ROOT, "comparison_output", "smoke_sphere_lane")])
+    psnr21, flip21 = parse_metrics(text)
+    log(f"[evaluate sphere_lane.json 480x270 x64] PSNR {psnr21!r} dB, FLIP "
+        f"{flip21!r} (gate >= 50.54 dB, <= 0.018)")
+    if not (psnr21 >= 50.54 and flip21 <= 0.018):
+        raise AssertionError("sphere_lane.json evaluate misses the quality "
+                             "gate")
+    bench = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py")],
+        env=dict(os.environ, BENCH_SKIP_CPU="1"), capture_output=True,
+        text=True, timeout=600)
+    line = (bench.stdout.strip().splitlines() or [""])[-1]
+    log(f"[bench_torch.py] rc {bench.returncode}: {line}")
+    result = json.loads(line) if bench.returncode == 0 else {}
+    if not (set(result) == BENCH_KEYS and "(cuda)" in result["metric"]
+            and 0 < result["min"] <= result["value"] <= result["max"]):
+        raise AssertionError("bench_torch.py printed no bench.py line: "
+                             f"{bench.stderr[-500:]}")
+    log(f"[phase 21] {time.perf_counter() - t21:.1f} s")
+
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
-                "K4-MXU", "K5-MXU"):
+                "K4-MXU", "K5-MXU", *(k for k in kernels
+                                      if k.startswith("K9"))):
         k = kernels[key]
-        t_ops = k.pop("ops") / k.pop("peak_ops")
-        t_bytes = k.pop("bytes") / PEAK_BYTES
+        t_ops = (k.pop("ops_seconds") if "ops_seconds" in k
+                 else k.pop("ops") / k.pop("peak_ops"))
+        t_bytes = k.pop("bytes") / bounds.BYTES_RATE
         k["bound_ms"] = max(t_ops, t_bytes) * 1e3
         k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         k["launches"] = launches[key]
@@ -1133,6 +1189,221 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def hold(label, got, want, bounds, ids_got=None, ids_want=None):
+    """Hold trace t (and ids) `got` against `want` to `bounds`: hit flips
+    under 2e-3, t within rtol/atol where both hit (on the same triangle
+    with t_same_id), ids equal on the share bounds["ids"]; returns the
+    largest |dt|."""
+    from neural_renderer_tpu_torch.ops import trace_mxu
+    a = trace_mxu.agreement(got, want, ids_got, ids_want,
+                            bounds["rtol"], bounds["atol"])
+    log(f"[{label}] hit flips {a['flips']!r}, both hit {a['both']}, "
+        f"max|dt| {a['max_abs']!r}, max rel dt {a['max_rel']!r}, ids "
+        f"equal {a['ids']!r}")
+    within = a["within"]
+    if bounds.get("t_same_id"):
+        same = ids_got == ids_want
+        s = trace_mxu.agreement(got[same], want[same],
+                                rtol=bounds["rtol"], atol=bounds["atol"])
+        log(f"[{label}] on the same triangle: max|dt| "
+            f"{s['max_abs']!r}, max rel dt {s['max_rel']!r}")
+        within = s["within"]
+    if not (a["flips"] < 2e-3 and within
+            and a["ids"] >= bounds["ids"]):
+        raise AssertionError(f"{label}: outside {bounds}")
+    return a["max_abs"]
+
+
+# The keys of bench.py's last line (bench.py:279-291).
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "repeats", "min",
+              "max"}
+
+
+def ablation_phase(kernels, launches):
+    """Phase 20: drive the trace-kernel ablation with its counters at 0,
+    then hold each of its kernels against its twin and the production
+    kernels; adds a "K9 <variant>" entry per new kernel to `kernels` and
+    its launches to `launches`."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import ablate_trace_kernel_torch as ablate
+    from neural_renderer_tpu_torch.ops import trace_ablation as ta
+    from neural_renderer_tpu_torch.ops import trace_mxu, trace_pallas
+
+    counters = (ta.trace_variant.launches, ta.sweep_variant.launches,
+                ta.trace_mxu_bf16.launches)
+    for c in counters:
+        c.clear()
+    traces, sweeps, (o, d, tris), (so, sd, stris, scols) = ablate.run(
+        ablate.DEFAULT_VARIANTS + ABLATE_EXTRA)
+    counts = [dict(c) for c in counters]
+    failed = [k for k, v in {**traces, **sweeps}.items()
+              if isinstance(v, Exception)]
+    if failed:
+        raise AssertionError(f"ablation variants failed: {failed}")
+    log(f"[K9 ablation] launches {counts}")
+
+    def twin_all(fn, o, d):
+        """fn over ABLATE_CHUNK-ray chunks of all the rays: (out, ms)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = torch.cat([fn(o[:, i:i + ABLATE_CHUNK].contiguous(),
+                            d[:, i:i + ABLATE_CHUNK].contiguous())
+                         for i in range(0, o.shape[1], ABLATE_CHUNK)],
+                        dim=1)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def ids(x):
+        return x[1].view(torch.int32)
+
+    def exact(label, got, want):
+        err = (got[0] - want[0]).abs().max().item()
+        same = torch.equal(got, want)
+        log(f"[{label}] max|dt| {err!r}, bit-exact {same}")
+        if not same:
+            raise AssertionError(f"{label}: not bit-exact")
+        return err
+
+    def hold_bf16(label, got, want):
+        hit_g, hit_w = got < trace_pallas.MISS, want < trace_pallas.MISS
+        both = hit_g & hit_w
+        flips = (hit_g != hit_w).double().mean().item()
+        rel = ((got - want).abs() / want.abs())[both].double()
+        med = rel.median().item() if rel.numel() else 0.0
+        log(f"[{label}] hit flips {flips!r}, median rel dt {med!r}, max "
+            f"{rel.max().item() if rel.numel() else 0.0!r}")
+        if not (flips < ABLATE_BF16["flips"]
+                and med < ABLATE_BF16["median_rel"]):
+            raise AssertionError(f"{label}: outside {ABLATE_BF16}")
+
+    def hold_share(label, got, want):
+        b = ABLATE_MXU_BF16
+        a = trace_mxu.agreement(got[0], want[0], ids(got), ids(want),
+                                b["rtol"], b["atol"])
+        both = (got[0] < trace_pallas.MISS) & (want[0] < trace_pallas.MISS)
+        diff = (got[0] - want[0]).abs()[both]
+        share = (diff <= b["atol"] + b["rtol"] * want[0].abs()[both]) \
+            .double().mean().item()
+        log(f"[{label}] hit flips {a['flips']!r}, both hit {a['both']}, "
+            f"within {b['rtol']} on {share!r} of them, max|dt| "
+            f"{a['max_abs']!r}, max rel dt {a['max_rel']!r}, ids equal "
+            f"{a['ids']!r}")
+        if not (a["flips"] < 2e-3 and share >= b["share"]
+                and a["max_rel"] <= b["max_rel"] and a["ids"] >= b["ids"]):
+            raise AssertionError(f"{label}: outside {b}")
+        return a["max_abs"]
+
+    def entry(label, name, source, replaces, err, res, pms, count, nbytes_):
+        if count <= 0:
+            raise AssertionError(f"K9 {label} was never launched by the "
+                                 "ablation")
+        launches[f"K9 {label}"] = count
+        log(f"[time K9 {label}] kernel {res['ms']:.4f} ms, twin {pms:.4f} "
+            f"ms, bound {res['bound_ms']:.4f} ms, launches {count}")
+        kernels[f"K9 {label}"] = dict(
+            name=name, route="cuda",
+            source="neural_renderer_tpu_torch/csrc/" + source,
+            replaces=replaces, max_abs_err=err, ms=res["ms"], plain_ms=pms,
+            ops_seconds=res["bound_ms"] * 1e-3, bytes=nbytes_,
+            library_ms=None)
+
+    k3 = traces["current"]["out"]
+    n = o.shape[1]
+    for label, (var, block, tile) in ta.TRACE_COMBOS.items():
+        res = traces[label]
+        ker = res["out"]
+        tp = ablate.padded(tris, tile)
+        twin, pms = twin_all(lambda a, b: ta.trace_variant_twin(
+            a, b, tp, var, tile), o, d)
+        if var == "recipx":
+            err = hold(f"K9 {label} vs twin", ker[0], twin[0], ABLATE_ULPS,
+                       ids(ker), ids(twin))
+        else:
+            err = exact(f"K9 {label} vs twin", ker, twin)
+        if var in ("local", "recip"):
+            exact(f"K9 {label} vs K3", ker, k3)
+        elif var in ("nodiv", "recipx"):
+            hold(f"K9 {label} vs K3", ker[0], k3[0], ABLATE_ULPS, ids(ker),
+                 ids(k3))
+        elif var == "bf16":
+            hold_bf16(f"K9 {label} vs K3", ker[0], k3[0])
+        entry(label, f"ablate_trace {label} (K9: {var} tile math, {block} "
+              f"rays x {tile} triangles)", "ablate_trace.cu",
+              "scripts/ablate_trace_kernel.py:149", err, res, pms,
+              counts[0].get(f"{var}/{block}/{tile}", 0),
+              nbytes(o, d, tp) + 2 * 4 * n)
+
+    tp = ablate.padded(tris, trace_pallas.TRI_TILE)
+    ones = torch.ones(ABLATE_CHUNK // trace_pallas.BLOCK_RAYS,
+                      dtype=torch.int32, device=o.device)
+    k8 = traces["mxu_hi"]["out"]
+    k8_twin, _ = twin_all(lambda a, b: trace_pallas.trace_dense_twin(
+        a, b, tp, 0, ones, mxu=True), o, d)
+    hold("K9 mxu_hi (K8) vs twin", k8[0], k8_twin[0], MXU_TWIN, ids(k8),
+         ids(k8_twin))
+    hold("K9 mxu_hi (K8) vs K3", k8[0], k3[0], MXU_DENSE_VPU, ids(k8),
+         ids(k3))
+    for label, passes in ta.MXU_BF16_PASSES.items():
+        res = traces[label]
+        ker = res["out"]
+        twin, pms = twin_all(lambda a, b: ta.trace_mxu_bf16_twin(
+            a, b, tp, passes), o, d)
+        err = hold_share(f"K9 {label} vs twin", ker, twin)
+        entry(label, f"ablate_mxu_bf16 {label} (K8's matrix form with "
+              f"{passes}-pass bf16 products)", "ablate_mxu_bf16.cu",
+              "neural_renderer_tpu/ops/trace_mxu.py:112", err, res, pms,
+              counts[2].get(passes, 0), nbytes(o, d, tp) + 2 * 4 * n)
+
+    k4 = sweeps["sweep"]["out"]
+    exact("K9 sweep_nof2 (K4) vs K4 rows 0-3", sweeps["sweep_nof2"]["out"],
+          k4[:4])
+    sones = torch.ones(ABLATE_CHUNK // trace_pallas.BLOCK_RAYS,
+                       dtype=torch.int32, device=so.device)
+    k4m = sweeps["sweep_mxu"]["out"]
+    k4m_twin, _ = twin_all(lambda a, b: trace_pallas.sweep_shells_dense_twin(
+        a, b, stris, scols, True, sones, mxu=True), so, sd)
+    for row in range(5):
+        hold(f"K9 sweep_mxu (K4-MXU) vs twin row {row}", k4m[row],
+             k4m_twin[row], MXU_TWIN)
+        # Against K4, the dense trace's bounds: on these camera rays from
+        # distance 3 the matrix form's t error is absolute (t·det = o·n -
+        # v0·n cancels terms of size |o||n|), up to 3.0e-5 at t ~ 2.8 on
+        # the CPU twins; phase 17's sweep bound (1e-6 absolute) holds on
+        # its small shells only.
+        hold(f"K9 sweep_mxu (K4-MXU) vs K4 row {row}", k4m[row], k4[row],
+             MXU_DENSE_VPU)
+    for var in ta.SWEEP_VARIANTS:
+        label = f"sweep_{var}"
+        res = sweeps[label]
+        ker = res["out"]
+        pairs = ta.variant_pairs(var)
+        twin, pms = twin_all(lambda a, b: trace_pallas.sweep_shells_dense_twin(
+            a, b, stris, scols, True, sones, pairs=pairs), so, sd)
+        err = 0.0
+        for row in range(5):
+            if var == "recipx":
+                err = max(err, hold(f"K9 {label} vs twin row {row}",
+                                    ker[row], twin[row], ABLATE_ULPS))
+            else:
+                err = max(err, exact(f"K9 {label} vs twin row {row}",
+                                     ker[row:row + 1], twin[row:row + 1]))
+            if var == "recip":
+                exact(f"K9 {label} vs K4 row {row}", ker[row:row + 1],
+                      k4[row:row + 1])
+            elif var == "bf16":
+                hold_bf16(f"K9 {label} vs K4 row {row}", ker[row], k4[row])
+            else:
+                hold(f"K9 {label} vs K4 row {row}", ker[row], k4[row],
+                     ABLATE_ULPS)
+        entry(label, f"ablate_sweep {label} (K4's dense dual-shell sweep "
+              f"with K9's {var} tile math)", "ablate_sweep.cu",
+              "neural_renderer_tpu/ops/trace_pallas.py:95", err, res, pms,
+              counts[1].get(var, 0), nbytes(so, sd, stris) + 5 * 4 * n)
 
 
 def library_backward(net, x, g, lane_grid_kernel):

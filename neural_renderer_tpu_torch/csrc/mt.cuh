@@ -10,8 +10,28 @@
 #define NR_TRI_EPS 1e-8f
 #define NR_MISS 1e30f
 
+// How Möller–Trumbore takes 1/det: an IEEE divide (the production math), the
+// correctly rounded reciprocal __frcp_rn (the same value), or the
+// approximate rcp.approx.ftz.f32 (about 1 ulp per the PTX ISA). The last two
+// are variants of the trace-kernel ablation (csrc/mt_variants.cuh).
+enum NrRcp { NR_RCP_DIV, NR_RCP_RN, NR_RCP_APPROX };
+
+template <int kRcp>
+__device__ __forceinline__ float nr_rcp(float x) {
+  if constexpr (kRcp == NR_RCP_RN) {
+    return __frcp_rn(x);
+  } else if constexpr (kRcp == NR_RCP_APPROX) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return 1.0f / x;
+  }
+}
+
 // Returns t (NR_MISS where the pair is rejected) and writes det, whose sign
 // carries the facing: FORWARD (facing < 0) == det > 0.
+template <int kRcp = NR_RCP_DIV>
 __device__ __forceinline__ float nr_mt_t(
     float ox, float oy, float oz, float dx, float dy, float dz,
     float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
@@ -22,7 +42,7 @@ __device__ __forceinline__ float nr_mt_t(
   float det = e1x * px + e1y * py + e1z * pz;
   *det_out = det;
   bool ok = fabsf(det) >= NR_TRI_EPS;
-  float inv_det = 1.0f / (ok ? det : 1.0f);
+  float inv_det = nr_rcp<kRcp>(ok ? det : 1.0f);
   float tx = ox - v0x;
   float ty = oy - v0y;
   float tz = oz - v0z;

@@ -144,15 +144,10 @@ __device__ __forceinline__ MxuAcc nr_mxu_products(
   return r;
 }
 
-// Column i of a tile: t (NR_MISS where rejected, every cull but facing,
-// t > MIN_T included) and det.
-__device__ __forceinline__ float nr_mxu_pair(const MxuAcc& acc, int i,
-                                             float* det_out) {
-  const float det = __double2float_rn(acc.det[i]);
-  const float u_num = __double2float_rn(acc.u[i]);
-  const float v_num = __double2float_rn(acc.v[i]);
-  const float t_num = __double2float_rn(acc.t[i]);
-  *det_out = det;
+// pair_eval_raw's FP32 epilogue on a pair's four products, then t > MIN_T:
+// t, or NR_MISS where the pair is rejected (every cull but facing).
+__device__ __forceinline__ float nr_mxu_epilogue(float det, float u_num,
+                                                 float v_num, float t_num) {
   bool ok = fabsf(det) >= NR_TRI_EPS;
   const float inv_det = 1.0f / (ok ? det : 1.0f);
   const float u = u_num * inv_det;
@@ -162,6 +157,17 @@ __device__ __forceinline__ float nr_mxu_pair(const MxuAcc& acc, int i,
   const float t = t_num * inv_det;
   ok = ok && (t > NR_TRI_EPS) && (t > NR_MIN_T);
   return ok ? t : NR_MISS;
+}
+
+// Column i of a tile: its FP64 products rounded to f32, then the epilogue;
+// writes det.
+__device__ __forceinline__ float nr_mxu_pair(const MxuAcc& acc, int i,
+                                             float* det_out) {
+  const float det = __double2float_rn(acc.det[i]);
+  *det_out = det;
+  return nr_mxu_epilogue(det, __double2float_rn(acc.u[i]),
+                         __double2float_rn(acc.v[i]),
+                         __double2float_rn(acc.t[i]));
 }
 
 // Fold the strict two-min pair (b1, b2) into (m1, m2): m2 stays the min of

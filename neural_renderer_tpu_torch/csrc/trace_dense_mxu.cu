@@ -13,12 +13,12 @@
 // without touching a triangle. TraceMode: 0 ANY, 1 FORWARD_ONLY (det > 0),
 // 2 BACKWARD_ONLY (det < 0).
 //
-// Bound: the FP64 tensor products, the function's 38 flops per (ray,
-// triangle) pair of the live blocks (48 as issued, k4 granularity) at 67
-// TFLOP/s (H100 SXM), against the epilogue's ~24 FP32 operations (four of
-// them FP64-to-FP32 conversions). The design reads each
-// B fragment once per n-tile for all four m-tiles, so shared-memory traffic
-// stays under the tensor work.
+// Bound (ops/bounds.py): the FP64 tensor products, the function's 38 flops
+// per (ray, triangle) pair of the live blocks (48 as issued, k4
+// granularity) at 67 TFLOP/s (H100 SXM), against the epilogue's 9 FP32
+// operations (5 arithmetic, 4 FP64-to-FP32 conversions). The design reads
+// each B fragment once per n-tile for all four m-tiles, so shared-memory
+// traffic stays under the tensor work.
 #include "mt_mxu.cuh"
 
 __global__ void __launch_bounds__(MXU_BLOCK_RAYS)

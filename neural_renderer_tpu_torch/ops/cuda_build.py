@@ -37,6 +37,9 @@ SOURCES = {
     "sweep_stream_mxu": "sweep_stream_mxu.cu",
     "sweep_dense_mxu": "sweep_dense_mxu.cu",
     "trace_cluster_stream_mxu": "trace_cluster_stream_mxu.cu",
+    "ablate_trace": "ablate_trace.cu",
+    "ablate_sweep": "ablate_sweep.cu",
+    "ablate_mxu_bf16": "ablate_mxu_bf16.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op by op

@@ -19,8 +19,8 @@ block per 512-ray worklist block (the TPU's granularity), one thread per
 ray; the block loads its own count and worklist row, stages each cluster's
 [9, 256] f32 tile (9 KB) in shared memory and loops its ray over it with
 the five accumulators in registers. Bound on the card: FP32 operations,
-~45 per swept (ray, triangle) pair; the block-sized worklist keeps the
-swept pairs at the block frustum's footprint. Built with -fmad=false, it is
+46 per swept (ray, triangle) pair (`ops/bounds.py`); the block-sized
+worklist keeps the swept pairs at the block frustum's footprint. Built with -fmad=false, it is
 bit-exact to `sweep_clusters_twin`: min and strict second-min are
 selections, independent of how the pairs are grouped.
 
@@ -30,7 +30,7 @@ cluster can still beat any ray of the block (bound = max over rays of
 min(best_t, exit_t) against the next entry t). Kernel
 `csrc/trace_cluster_stream.cu` replaces `_stream_kernel`, with the same
 block shape and tile staging as the sweep; the bound is a block-wide max
-reduction after each cluster. Bound on the card: FP32 operations, ~45 per
+reduction after each cluster. Bound on the card: FP32 operations, 46 per
 pair actually swept (the wrapper can report clusters swept per block). The
 smallest triangle id wins among equal t, as in `trace_mesh_brute`, so
 kernel, twin and oracle agree exactly, with the break on or off.
@@ -45,7 +45,8 @@ with its exit-t cap and margin, and the tie rule stay as above; only the
 pair math changes: the four products as FP64 tensor-core products, then
 the FP32 epilogue and t > MIN_T (csrc/mt_mxu.cuh). Bound on the card: the
 FP64 tensor products, the function's 38 flops per swept pair (48 as
-issued) against 67 TFLOP/s. The twins take `mxu=True`.
+issued) against 67 TFLOP/s, over the FP32 epilogue's 9 operations
+(`ops/bounds.py`). The twins take `mxu=True`.
 """
 
 from __future__ import annotations

@@ -29,9 +29,9 @@ parity tests' spheres (`scripts/emulate_mxu_split.py`), it leaves t outside
 f32 features (exact, their sums rounded once to f32) leave none.
 The twin is `trace_pallas.trace_dense_twin(..., mxu=True)`, its pairs
 `mxu_tile_t`, with the same FP64 products (`pair_eval_raw`). Bound on the
-card: the FP64 tensor products, the function's 38 flops per pair (48 as
-issued) at 67 TFLOP/s, against the FP32 epilogue (~24 operations per pair,
-four of them FP64-to-FP32 conversions).
+card (`ops/bounds.py`): the FP64 tensor products, the function's 38 flops
+per pair (48 as issued) at 67 TFLOP/s, against the FP32 epilogue (9
+operations per pair: 5 arithmetic, 4 FP64-to-FP32 conversions).
 """
 
 from __future__ import annotations
@@ -101,7 +101,12 @@ def pair_eval_raw(F, tb):
         return torch.matmul(rays, f.movedim(0, -2).double()).float()
 
     f_det, f_u, f_v, f_t = tri_features(tb)
-    det, u_num, v_num, t_num = dot(f_det), dot(f_u), dot(f_v), dot(f_t)
+    return pair_epilogue(dot(f_det), dot(f_u), dot(f_v), dot(f_t))
+
+
+def pair_epilogue(det, u_num, v_num, t_num):
+    """`pair_eval_raw`'s FP32 epilogue on the four products: (t, ok,
+    det)."""
     ok = torch.abs(det) >= TRI_EPSILON
     inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
     u = u_num * inv_det

@@ -11,7 +11,8 @@ Kernel `csrc/trace_dense.cu` replaces `trace_pallas.py::_kernel`. One CUDA
 thread per ray, 512-ray blocks (the TPU kernel's block, so the per-block
 skip flag means the same thing), triangles staged through shared memory in
 256-wide tiles, (best_t, best_tri) in registers. Bound on the card: FP32
-operations, ~45 per (ray, triangle) pair over the live blocks; the design
+operations, 46 per (ray, triangle) pair over the live blocks (counted in
+`ops/bounds.py`); the design
 keeps every operand in registers or broadcast shared-memory reads so the
 inner loop is pure FP32 arithmetic. Built with -fmad=false, it rounds op by
 op like `_mt_tile_t` below and is held bit-exact to `trace_dense_twin`.
@@ -20,8 +21,8 @@ Kernel `csrc/sweep_dense.cu` replaces `trace_pallas.py::_sweep_kernel`: the
 five rows of the clustered sweep without worklists, for shell pairs too
 small for clusters to pay. Same block shape and skip flag; outer tiles fold
 the strict forward pair and the backward min, inner tiles the two mins, all
-in registers. Bound on the card: FP32 operations, ~45 per pair over the
-live blocks x the shells' real triangles. Bit-exact to
+in registers. Bound on the card: FP32 operations, 46 per pair over the
+live blocks x the shells' real triangles (`ops/bounds.py`). Bit-exact to
 `sweep_shells_dense_twin`.
 
 With `NR_TRACE_MXU=1` (or `mxu=True`) both wrappers take the matrix
@@ -32,7 +33,8 @@ the `mxu=True` body of `_sweep_block_body` (`trace_pallas.py:200-230`):
 the same rows, block shape and skip flag, the pair math as FP64
 tensor-core products with an FP32 epilogue (csrc/mt_mxu.cuh). Bound on the
 card: the FP64 tensor products, the function's 38 flops per pair of the
-live blocks (48 as issued) against 67 TFLOP/s; the twins are
+live blocks (48 as issued) against 67 TFLOP/s, over the FP32 epilogue's 9
+operations (`ops/bounds.py`); the twins are
 `trace_dense_twin` and `sweep_shells_dense_twin` with `mxu=True`.
 """
 
@@ -200,13 +202,17 @@ trace_dense.launches = 0
 
 
 def sweep_shells_dense_twin(origins, dirs, tris_packed, outer_cols: int,
-                            with_fwd2: bool, block_mask, mxu: bool = False):
+                            with_fwd2: bool, block_mask, mxu: bool = False,
+                            pairs=None):
     """Plain-PyTorch twin of the dense dual-shell sweep kernel: [5 or 4,
     Npad] f32 rows outer_fwd, outer_bwd, inner_fwd, inner_bwd[, outer_fwd2],
     1e30 on a miss and in blocks whose skip flag is 0. `mxu` evaluates the
-    pairs in the matrix formulation (`trace_mxu.mxu_tile_t`)."""
+    pairs in the matrix formulation (`trace_mxu.mxu_tile_t`); `pairs`, a
+    function with `_mt_tile_t`'s contract, replaces the pair math (the
+    tile-math variants of `trace_ablation`)."""
     from . import trace_mxu
-    pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
+    if pairs is None:
+        pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
     n = origins.shape[1]
     miss = torch.full((n,), MISS, dtype=torch.float32, device=origins.device)
     m1f, m2f, m1b, i1f, i1b = miss, miss, miss, miss, miss

@@ -21,7 +21,13 @@ and absolute where both hit, ids equal on 99.9%), and to its
 MXU-against-oracle bounds against the default kernels (t within 1e-5
 relative and, for the dense trace in all three modes, 1e-5 absolute with
 ids equal on 99.9%; for the sweeps and the clustered trace 1e-6 absolute
-with ids equal on 99%).
+with ids equal on 99%). The trace-kernel ablation's kernels
+(ops/trace_ablation.py) round op by op like their twins and are held
+bit-exact, but for `recipx`, whose approximate reciprocal (about 1 ulp,
+PTX ISA) the twin takes exactly: t within 1e-6 relative, hit flips under
+2e-3, ids on 99.9%; and the bf16 matrix form, whose tensor-core f32 sums
+of the exact bf16 products differ from the twin's float64 sum rounded
+once: the kernel-against-twin bounds above.
 """
 
 import numpy as np
@@ -31,8 +37,9 @@ import torch
 from neural_renderer_tpu_torch.models import convert, nbvh
 from neural_renderer_tpu_torch.ops import (fused_network, lane_grid_kernel,
                                            lane_grid_train_kernel,
-                                           trace_cluster, trace_mxu,
-                                           trace_pallas, traversal)
+                                           trace_ablation, trace_cluster,
+                                           trace_mxu, trace_pallas,
+                                           traversal)
 from neural_renderer_tpu_torch.render import neural_frame
 from neural_renderer_tpu_torch.render.neural_march import NeuralContext
 from neural_renderer_tpu_torch.render.params import RenderParams
@@ -415,3 +422,73 @@ def test_frame_matches_twin_frame(cuda, mxu, monkeypatch):
         imgs.append(img.cpu().numpy().astype(int))
     d = np.abs(imgs[0] - imgs[1])
     assert (d > 3).mean() < 0.02 and d.mean() < 1.0
+
+
+def _ablation_workload(device, n=4096):
+    """The ablation's workload at a test size: a 9,216-triangle outward
+    sphere and rays from radius 3 aimed near its centre."""
+    r = np.random.default_rng(5)
+    o = r.normal(size=(n, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = r.normal(size=(n, 3)) * 0.6 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tris = outward_sphere(48, 96, 1.0).to_tensors(device).tris_packed
+    return (torch.as_tensor(np.ascontiguousarray(o.T, np.float32),
+                            device=device),
+            torch.as_tensor(np.ascontiguousarray(d.T, np.float32),
+                            device=device), tris)
+
+
+@pytest.mark.parametrize("label", list(trace_ablation.TRACE_COMBOS))
+def test_ablation_trace_kernel_matches_twin(cuda, label):
+    """Each K9 kernel against its twin; `local` against K3 too."""
+    var, block, tile = trace_ablation.TRACE_COMBOS[label]
+    o, d, tris = _ablation_workload(cuda)
+    key = f"{var}/{block}/{tile}"
+    before = trace_ablation.trace_variant.launches[key]
+    ker = trace_ablation.trace_variant(o, d, tris, var, block, tile)
+    assert trace_ablation.trace_variant.launches[key] == before + 1
+    twin = trace_ablation.trace_variant_twin(o, d, tris, var, tile)
+    assert bool((ker[0] < 1e30).any())
+    if var == "recipx":
+        _hold(ker[0], twin[0], dict(rtol=1e-6, atol=0.0, ids=0.999),
+              ker[1].view(torch.int32), twin[1].view(torch.int32))
+    else:
+        assert torch.equal(ker, twin)
+    if var == "local":
+        ones = torch.ones(o.shape[1] // 512, dtype=torch.int32, device=cuda)
+        k3 = trace_pallas.trace_dense(o, d, tris, traversal.ANY, ones,
+                                      mxu=False)
+        assert torch.equal(ker, k3)
+
+
+@pytest.mark.parametrize("variant", trace_ablation.SWEEP_VARIANTS)
+@pytest.mark.parametrize("with_fwd2", [True, False])
+def test_ablation_sweep_kernel_matches_twin(cuda, variant, with_fwd2):
+    """The sweep family's kernels against their twins on small shells."""
+    outer = outward_sphere(16, 32, 1.2).to_tensors(cuda)
+    inner = outward_sphere(16, 32, 0.8).to_tensors(cuda)
+    ops = traversal.dense_sweep_operands(outer, inner, *_rays(cuda))
+    before = trace_ablation.sweep_variant.launches[variant]
+    ker = trace_ablation.sweep_variant(*ops[:4], with_fwd2, ops[4], variant)
+    assert trace_ablation.sweep_variant.launches[variant] == before + 1
+    twin = trace_pallas.sweep_shells_dense_twin(
+        *ops[:4], with_fwd2, ops[4],
+        pairs=trace_ablation.variant_pairs(variant))
+    assert (ker[0] < 1e30).sum() > 500
+    if variant == "recipx":
+        _hold_rows(ker, twin, dict(rtol=1e-6, atol=0.0, ids=0.0))
+    else:
+        assert torch.equal(ker, twin)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_ablation_mxu_bf16_kernel_matches_twin(cuda, passes):
+    """The bf16 matrix form (mxu_lo, mxu_hi3) against its twin."""
+    o, d, tris = _ablation_workload(cuda)
+    before = trace_ablation.trace_mxu_bf16.launches[passes]
+    ker = trace_ablation.trace_mxu_bf16(o, d, tris, passes)
+    assert trace_ablation.trace_mxu_bf16.launches[passes] == before + 1
+    twin = trace_ablation.trace_mxu_bf16_twin(o, d, tris, passes)
+    _hold(ker[0], twin[0], _TWIN_BOUNDS, ker[1].view(torch.int32),
+          twin[1].view(torch.int32))
