@@ -19,7 +19,9 @@ its training. Phases, each failing the run:
   2. hold each kernel against its PyTorch twin on inputs taken from the
      1080p frame: the clustered sweep (camera fwd2 sweep and one bounce
      sweep, 131,072 rays each) and the dense trace bit-exact, the fused
-     network within 2e-2 of the largest output; time kernel and twin;
+     network within 2e-2 of the largest output; time kernel and twin, and
+     split the network kernel's time by timing K7 (the MLP alone) on the
+     encoded features of the slice's live rows;
   3. render 480x270 through the kernels and through the twins on the card
      and compare the images (under 2% of pixels off by more than 3, mean
      difference under 1.0);
@@ -39,15 +41,18 @@ its training. Phases, each failing the run:
      the ground-truth pass, the clustered sweep and the network in the
      neural pass;
   8. render a procedural small-shell scene at 480x270 through the Renderer,
-     kernels against twins on the card: the two images must be identical,
-     with the dense sweep's counter above 0;
+     kernels against twins on the card, with the dense sweep's counter above
+     0: with the network kernel on both sides the two images must be
+     identical (the trace and sweep kernels are bit-exact); with the
+     network's twin too, within phase 3's bounds (the network kernel's
+     tensor-core sums are not bit-exact);
   9. hold the training kernels against their twins on 131,072 segments the
      port's sampler draws from the knot (3 per ray), with the 48k-step knot
      weights in training layout: the training forward (K2 at entry_pack 1,
      32 rows) within K2's 2e-2, every gradient of the network backward (K6)
      under the loss's own cotangent within 1e-3 of the twin's largest
      |grad| (f32 atomics reorder the sums); time kernel, twin and a library
-     version;
+     version, and the backward's two passes under torch.profiler;
  10. score the 48k-step weights on one sampled 16,384 x 3 batch (total loss
      under 0.03), then train 100 steps from seeded weights through
      `cli/train.py` (16,384 segments x 3 per ray, cosine schedule), every
@@ -202,6 +207,26 @@ def time_ms(fn, reps=10):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def pass_ms(fn, names, reps=5):
+    """Device ms per call of fn() spent in each kernel whose name starts
+    with one of `names` (torch.profiler over reps calls, after one
+    warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    totals = [0.0] * len(names)
+    for e in prof.key_averages():
+        for i, name in enumerate(names):
+            if e.key.startswith(name):
+                totals[i] += e.self_device_time_total / 1e3 / reps
+    return totals
 
 
 def main() -> int:
@@ -412,13 +437,26 @@ def main() -> int:
         source="neural_renderer_tpu_torch/csrc/lane_grid_forward.cu",
         replaces="neural_renderer_tpu/ops/lane_grid_kernel.py:126",
         max_abs_err=err2, ms=ms2, plain_ms=pms2, ops=2 * macs * live2,
-        bytes=nbytes(x_s, mask2, ops_k2.tables2d, ops_k2.w_hidden,
+        bytes=nbytes(x_s, mask2, ops_k2.tables, ops_k2.w_hidden,
                      ops_k2.w_out) + 16 * 4 * SLICE,
         peak_ops=bounds.BF16_TENSOR, library_ms=lib2)
     for key in ("K1", "K2", "K3"):
         k = kernels[key]
         log(f"[time {key}] kernel {k['ms']:.4f} ms, twin "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}")
+    # K2's split: K7 runs the same MLP on the tensor cores, so K7 on the
+    # encoded features of the rows K2 computes (its live blocks) times the
+    # MLP alone; the rest of K2's time is its encode.
+    live_rows = torch.nonzero(torch.repeat_interleave(mask2 != 0, 128)) \
+        .squeeze(1)
+    rows2 = fused_network.pack_input(nbvh.encode_inputs(net,
+                                                        x_s[:, live_rows]))
+    w2h, w2o = fused_network.pack_weights(net)
+    mlp2 = time_ms(lambda: fused_network.launch(rows2, w2h, w2o))
+    log(f"[time K2 split] kernel {ms2:.4f} ms on {live2} live rows; MLP "
+        f"alone (K7 on their encoded features) {mlp2:.4f} ms; encode and "
+        f"the rest {ms2 - mlp2:.4f} ms")
+    del rows2
 
     # ---- 3. 480x270 frame: kernels vs twins on the card ----------------
     p_small = make_params(480, 270)
@@ -631,15 +669,25 @@ def main() -> int:
     img_k = srend.render_accumulate([0.0, 0.0, 3.0], 2, batch_spp=1)
     launches["K4"] = trace_pallas.sweep_shells_dense.launches
     with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
-                   traversal):
+                   traversal, network=False):
         img_t = srend.render_accumulate([0.0, 0.0, 3.0], 2, batch_spp=1)
+    with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                   traversal):
+        img_tn = srend.render_accumulate([0.0, 0.0, 3.0], 2, batch_spp=1)
     diff = abs(img_k.astype(int) - img_t.astype(int))
+    diff_n = abs(img_k.astype(int) - img_tn.astype(int))
+    frac8, mean8 = float((diff_n > 3).mean()), float(diff_n.mean())
     log(f"[small shells 480x270 kernels vs twins] K4 launches "
-        f"{launches['K4']}, identical {bool((diff == 0).all())}, max |d| "
-        f"{int(diff.max())}, mean u8 {img_k.mean():.3f}")
+        f"{launches['K4']}; trace twins: identical "
+        f"{bool((diff == 0).all())}, max |d| {int(diff.max())}; network "
+        f"twin too: share > 3: {frac8!r}, mean |d| {mean8!r}; mean u8 "
+        f"{img_k.mean():.3f}")
     if launches["K4"] <= 0:
         raise AssertionError("K4 was never launched on the small-shell path")
     if not (diff == 0).all() or img_k.std() < 1.0:
+        raise AssertionError("small-shell kernel frame differs from the "
+                             "trace twins' frame")
+    if not (frac8 < 0.02 and mean8 < 1.0):
         raise AssertionError("small-shell kernel frame differs from the "
                              "twin frame")
     small_rend = srend
@@ -687,6 +735,10 @@ def main() -> int:
     if not worst6 <= 1e-3:
         raise AssertionError(f"K6: relative error {worst6} > 1e-3")
     ms6 = time_ms(lambda: ltk.backward_lane(knet, x9, g9))
+    split6 = pass_ms(lambda: ltk.backward_lane(knet, x9, g9),
+                     ("lane_grid_backward_rays", "lane_grid_backward_dw"))
+    log(f"[time K6 split] per-ray pass {split6[0]:.4f} ms, dW pass "
+        f"{split6[1]:.4f} ms (torch.profiler, device time per launch)")
     pms6 = time_ms(lambda: ltk.backward_twin(knet, x9, g9), reps=2)
     lib6 = time_ms(library_backward(knet, x9, g9, lane_grid_kernel), reps=3)
     n9 = x9.shape[1]
@@ -699,7 +751,7 @@ def main() -> int:
         max_abs_err=err6, ms=ms6, plain_ms=pms6,
         ops=3 * 2 * macs * n9,
         bytes=nbytes(x9, g9, ops_k6.w_hidden, ops_k6.w_out)
-        + 2 * nbytes(ops_k6.tables2d) + 4 * macs,
+        + 2 * nbytes(ops_k6.tables) + 4 * macs,
         peak_ops=bounds.BF16_TENSOR, library_ms=lib6)
     log(f"[time K6] kernel {ms6:.4f} ms, twin {pms6:.4f} ms, library "
         f"{lib6:.4f} ms, bound "
@@ -1506,10 +1558,12 @@ def run_frames(ctx, env, make_params, label, frames=2):
 
 
 @contextlib.contextmanager
-def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
+def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal,
+              network=True):
     """Route the five kernel entry points to their PyTorch twins (on the
     tensors' own device) for the duration of the block; the trace twins in
-    the formulation NR_TRACE_MXU selects."""
+    the formulation NR_TRACE_MXU selects. network=False leaves the network
+    kernel in place."""
     from neural_renderer_tpu_torch.ops import trace_mxu
     mxu = trace_mxu.use_mxu(None)
 
@@ -1525,7 +1579,8 @@ def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal):
              trace_cluster.sweep_clusters_stream, traversal.trace_dense,
              traversal.sweep_shells_dense,
              trace_cluster.trace_clusters_stream)
-    lane_grid_kernel.forward_lane = lane_twin
+    if network:
+        lane_grid_kernel.forward_lane = lane_twin
     traversal.sweep_shells_dense = \
         lambda *a: trace_pallas.sweep_shells_dense_twin(*a, mxu=mxu)
     trace_cluster.trace_clusters_stream = \

@@ -31,26 +31,6 @@
 #define FM_HIDDEN_ROWS (4 * LG_WIDTH)
 #define FM_SMEM ((FM_HIDDEN_ROWS + LG_OUT) * FM_STRIDE * 4)
 
-// c[0..3] += A (16x16, row-major fragment a[0..3]) x B (16x8, col-major
-// fragment b0, b1), f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// LeakyReLU of two neighbouring columns, rounded to a bf16 pair (column 0
-// in the low half), as the twin rounds each hidden activation.
-__device__ __forceinline__ uint32_t act_pair(float lo, float hi) {
-  lo = lo > 0.0f ? lo : 0.01f * lo;
-  hi = hi > 0.0f ? hi : 0.01f * hi;
-  return (uint32_t)f32_to_bf16_bits(lo) |
-         ((uint32_t)f32_to_bf16_bits(hi) << 16);
-}
-
 __global__ void __launch_bounds__(FM_THREADS, 1)
 fused_mlp_kernel(const uint32_t* __restrict__ x, int n,
                  const uint4* __restrict__ w_hidden,

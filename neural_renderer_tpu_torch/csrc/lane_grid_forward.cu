@@ -7,45 +7,56 @@
 // accumulation, hidden activations re-rounded to bf16. A 128-ray block with
 // no active ray writes zeros (the TPU kernel's skip granularity).
 //
-// Layout: persistent blocks of 256 threads (two 128-ray groups), one thread
-// per ray. The hidden weights [4][128 in][128 out] and the output weight
-// [128 in][16 out], bf16, sit in dynamic shared memory (132 KB), loaded once
-// per block. Each thread owns one column of the feature buffer
-// h[128][256] (bf16, 64 KB): it writes its encoded features there, and each
-// layer reads the column into registers, then overwrites it with the layer's
-// output. No thread touches another's column, so the layers need no block
-// barrier.
+// Bound: operations, 65,536 multiply-adds per ray in the MLP on the bf16
+// tensor cores; beside them 192 scattered 16-byte table reads per ray from
+// L2 (786 KB of packed tables at S=16 stay resident there).
 //
-// Bound: operations, 65,536 multiply-adds per ray in the MLP. This version
-// runs them as FP32 FMAs (explicit __fmaf_rn; the file is compiled with
-// -fmad=false so the encode rounds op by op like the PyTorch twin).
+// Layout: persistent blocks of 8 warps. The hidden weights [4][128 in][128
+// out] and the output weight [128 in][16 out], bf16, sit in shared memory
+// with padded rows (lane_grid.cuh), loaded once per block. Each warp takes
+// 32 rays (two m16 tiles) at a time:
+//   1. encode, one ray per lane: the tables are feature-interleaved, so one
+//      16-byte load fetches the 4 features of a corner; the 8 corner loads
+//      of a level are issued before any is used. The lane writes its ray's
+//      128 bf16 features into a column of the warp's channel-major staging
+//      tile (10 KB);
+//   2. after __syncwarp, ldmatrix.trans turns the tile into layer 0's A
+//      fragments;
+//   3. every layer runs on the tensor cores with mma.sync.m16n8k16 (bf16 x
+//      bf16 -> f32), B fragments by ldmatrix.trans from the [in][out]
+//      weights. Activations stay in registers: the f32 accumulators of two
+//      neighbouring n8 tiles, activated and rounded to bf16 pairs, are the
+//      next layer's A fragment (as in fused_mlp.cu).
+// The encode keeps the twin's expression order (corners summed c = 0..7,
+// -fmad=false), so the features are bit-exact; the tensor cores sum the
+// products in another order than the twin's f32 matmul.
 #include <stdint.h>
 
 #include "lane_grid.cuh"
 #include "mt.cuh"
 
-#define LG_THREADS 256
-#define LG_SMEM_W (4 * LG_WIDTH * LG_WIDTH * 2)
-#define LG_SMEM_WOUT (LG_WIDTH * LG_OUT * 2)
-#define LG_SMEM_H (LG_WIDTH * LG_THREADS * 2)
-#define LG_SMEM (LG_SMEM_W + LG_SMEM_WOUT + LG_SMEM_H)
+#define LG_THREADS (LG_WARPS * 32)
 
-// Eight bf16 values of a 16-byte word (little-endian: element 0 in the low
-// half of .x) times hv, accumulated into acc[0..7].
-__device__ __forceinline__ void fma8(float* acc, uint4 w, float hv) {
-  const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+// The A fragments a[2 m16 tiles][8 k16 tiles][4] of a warp's 32 rays from a
+// channel-major staging tile st[128][LG_TS] (channel k, ray m): the tile
+// is A transposed, so ldmatrix.trans gives A's fragments.
+__device__ __forceinline__ void lg_tile_fragments(uint32_t (*a)[8][4],
+                                                  const uint16_t* st,
+                                                  int lane) {
+  const int blk = lane >> 3, row = lane & 7;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    acc[2 * e] = __fmaf_rn(__uint_as_float(v[e] << 16), hv, acc[2 * e]);
-    acc[2 * e + 1] =
-        __fmaf_rn(__uint_as_float(v[e] & 0xFFFF0000u), hv, acc[2 * e + 1]);
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kt = 0; kt < 8; ++kt)
+      ldsm_x4_trans(a[mt][kt], st + (16 * kt + row + (blk >> 1) * 8) *
+                                        LG_TS +
+                                    16 * mt + (blk & 1) * 8);
 }
 
 __global__ void __launch_bounds__(LG_THREADS, 1)
 lane_grid_forward_kernel(const float* __restrict__ x, int npad,
                          const int* __restrict__ block_mask,
-                         const float* __restrict__ tables,
+                         const uint4* __restrict__ tables,
                          const uint16_t* __restrict__ w_hidden,
                          const uint16_t* __restrict__ w_out,
                          const float* __restrict__ scales, int n_points,
@@ -54,133 +65,99 @@ lane_grid_forward_kernel(const float* __restrict__ x, int npad,
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sw = reinterpret_cast<uint16_t*>(smem);
   uint16_t* swo = reinterpret_cast<uint16_t*>(smem + LG_SMEM_W);
-  uint16_t* sh = reinterpret_cast<uint16_t*>(smem + LG_SMEM_W + LG_SMEM_WOUT);
-
-  {  // weights -> shared memory, 16 bytes per thread per step
-    const uint4* src = reinterpret_cast<const uint4*>(w_hidden);
-    uint4* dst = reinterpret_cast<uint4*>(sw);
-    for (int i = threadIdx.x; i < LG_SMEM_W / 16; i += blockDim.x)
-      dst[i] = src[i];
-    const uint4* src2 = reinterpret_cast<const uint4*>(w_out);
-    uint4* dst2 = reinterpret_cast<uint4*>(swo);
-    for (int i = threadIdx.x; i < LG_SMEM_WOUT / 16; i += blockDim.x)
-      dst2[i] = src2[i];
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint16_t* st = reinterpret_cast<uint16_t*>(
+      smem + LG_SMEM_W + LG_SMEM_WOUT + warp * LG_SMEM_TILE);
+  lg_load_weights(w_hidden, w_out, sw, swo);
   __syncthreads();
 
-  const int tid = threadIdx.x;
+  const int g = lane >> 2, tig = lane & 3;
+  const int blk = lane >> 3, row = lane & 7;
   const uint32_t n_entries = (uint32_t)(sublanes * entry_pack * LG_GROUP);
-  const int sub_shift = entry_pack == 2 ? 8 : 7;
+  const long long step = (long long)gridDim.x * LG_WARPS * LG_TILE_RAYS;
 
-  for (long long base = (long long)blockIdx.x * LG_THREADS; base < npad;
-       base += (long long)gridDim.x * LG_THREADS) {
-    const long long r = base + tid;
-    if (r >= npad) continue;
-    if (block_mask[r / LG_GROUP] == 0) {  // uniform within each warp
+  for (long long r0 = ((long long)blockIdx.x * LG_WARPS + warp) *
+                      LG_TILE_RAYS;
+       r0 < npad; r0 += step) {
+    if (block_mask[r0 / LG_GROUP] == 0) {  // uniform over the warp
 #pragma unroll
-      for (int o = 0; o < LG_OUT; ++o) out[o * (long long)npad + r] = 0.0f;
+      for (int o = 0; o < LG_OUT; ++o) out[o * (long long)npad + r0 + lane] =
+          0.0f;
       continue;
     }
+    lg_encode_column(x, npad, r0 + lane, true, tables, scales, n_points,
+                     n_levels, entry_pack, n_entries, encoded_dims, st, lane);
+    __syncwarp();
+    uint32_t a[2][8][4];
+    lg_tile_fragments(a, st, lane);
+    __syncwarp();
 
-    // ---- encode: features k = (p * L + level) * 4 + f, then 16 SH ----
-    int k = 0;
-    for (int p = 0; p < n_points; ++p) {
-      const float px = x[(3 * p) * (long long)npad + r];
-      const float py = x[(3 * p + 1) * (long long)npad + r];
-      const float pz = x[(3 * p + 2) * (long long)npad + r];
-      for (int level = 0; level < n_levels; ++level) {
-        uint32_t idx[8];
-        float wc[8];
-        lg_corners(px, py, pz, scales[level], n_entries, idx, wc);
-        const long long base_row =
-            (long long)((p * n_levels + level) * 4) * sublanes;
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+    for (int layer = 0; layer < 4; ++layer) {
+      const uint16_t* wl = sw + layer * LG_WIDTH * LG_WS;
+      uint32_t nxt[2][8][4];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const uint32_t sub = idx[c] >> sub_shift;
-          const uint32_t lane = idx[c] & (LG_GROUP - 1);
-          const bool hi_half = (idx[c] & LG_GROUP) != 0;
+      for (int j = 0; j < 8; ++j) {  // outputs 16 j .. 16 j + 15
+        float c[2][2][4] = {};
 #pragma unroll
-          for (int f = 0; f < 4; ++f) {
-            const long long row = base_row + (long long)f * sublanes + sub;
-            const float g = __ldg(tables + row * LG_GROUP + lane);
-            float val = g;
-            if (entry_pack == 2) {
-              const uint32_t u = __float_as_uint(g);
-              val = hi_half ? __uint_as_float(u & 0xFFFF0000u)
-                            : __uint_as_float(u << 16);
-            }
-            acc[f] = acc[f] + val * wc[c];
+        for (int kt = 0; kt < 8; ++kt) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, wl + (16 * kt + row + (blk & 1) * 8) * LG_WS +
+                               16 * j + (blk >> 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(c[mt][0], a[mt][kt], b[0], b[1]);
+            mma_bf16(c[mt][1], a[mt][kt], b[2], b[3]);
           }
         }
 #pragma unroll
-        for (int f = 0; f < 4; ++f)
-          sh[(k + f) * LG_THREADS + tid] = f32_to_bf16_bits(acc[f]);
-        k += 4;
+        for (int mt = 0; mt < 2; ++mt) {
+          nxt[mt][j][0] = act_pair(c[mt][0][0], c[mt][0][1]);
+          nxt[mt][j][1] = act_pair(c[mt][0][2], c[mt][0][3]);
+          nxt[mt][j][2] = act_pair(c[mt][1][0], c[mt][1][1]);
+          nxt[mt][j][3] = act_pair(c[mt][1][2], c[mt][1][3]);
+        }
       }
-    }
-    {
-      const long long d0 = (3 * n_points) * (long long)npad + r;
-      float shv[16];
-      lg_sh16(x[d0], x[d0 + npad], x[d0 + 2LL * npad], shv);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        sh[(k + j) * LG_THREADS + tid] = f32_to_bf16_bits(shv[j]);
-      for (int j = encoded_dims; j < LG_WIDTH; ++j)
-        sh[j * LG_THREADS + tid] = 0;
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int kt = 0; kt < 8; ++kt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[mt][kt][q] = nxt[mt][kt][q];
     }
 
-    // ---- MLP: out[o] = sum_i W[o][i] * h[i], f32 accumulation ----
-    uint32_t hc[LG_WIDTH / 2];
-    for (int layer = 0; layer < 4; ++layer) {
+    // Output layer: 16 outputs, linear.
+    float c[2][2][4] = {};
 #pragma unroll
-      for (int i2 = 0; i2 < LG_WIDTH / 2; ++i2)
-        hc[i2] = (uint32_t)sh[(2 * i2) * LG_THREADS + tid] |
-                 ((uint32_t)sh[(2 * i2 + 1) * LG_THREADS + tid] << 16);
-      const uint16_t* wl = sw + layer * LG_WIDTH * LG_WIDTH;
-      for (int chunk = 0; chunk < LG_WIDTH / 32; ++chunk) {
-        float acc[32];
+    for (int kt = 0; kt < 8; ++kt) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, swo + (16 * kt + row + (blk & 1) * 8) * LG_WOS +
+                           (blk >> 1) * 8);
 #pragma unroll
-        for (int q = 0; q < 32; ++q) acc[q] = 0.0f;
-#pragma unroll
-        for (int i = 0; i < LG_WIDTH; ++i) {
-          const float hv = (i & 1) ? __uint_as_float(hc[i >> 1] & 0xFFFF0000u)
-                                   : bf16_bits_to_f32(hc[i >> 1] & 0xFFFFu);
-          const uint4* wrow =
-              reinterpret_cast<const uint4*>(wl + i * LG_WIDTH + chunk * 32);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) fma8(acc + 8 * q, wrow[q], hv);
-        }
-#pragma unroll
-        for (int q = 0; q < 32; ++q) {
-          const float a = acc[q];
-          const float act = a > 0.0f ? a : 0.01f * a;
-          sh[(chunk * 32 + q) * LG_THREADS + tid] = f32_to_bf16_bits(act);
-        }
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(c[mt][0], a[mt][kt], b[0], b[1]);
+        mma_bf16(c[mt][1], a[mt][kt], b[2], b[3]);
       }
     }
 #pragma unroll
-    for (int i2 = 0; i2 < LG_WIDTH / 2; ++i2)
-      hc[i2] = (uint32_t)sh[(2 * i2) * LG_THREADS + tid] |
-               ((uint32_t)sh[(2 * i2 + 1) * LG_THREADS + tid] << 16);
-    float acc[LG_OUT];
+    for (int mt = 0; mt < 2; ++mt) {
+      const long long rl = r0 + mt * 16 + g, rh = rl + 8;
 #pragma unroll
-    for (int q = 0; q < LG_OUT; ++q) acc[q] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < LG_WIDTH; ++i) {
-      const float hv = (i & 1) ? __uint_as_float(hc[i >> 1] & 0xFFFF0000u)
-                               : bf16_bits_to_f32(hc[i >> 1] & 0xFFFFu);
-      const uint4* wrow = reinterpret_cast<const uint4*>(swo + i * LG_OUT);
-      fma8(acc, wrow[0], hv);
-      fma8(acc + 8, wrow[1], hv);
+      for (int nt = 0; nt < 2; ++nt) {
+        const long long o = nt * 8 + tig * 2;
+        out[o * npad + rl] = c[mt][nt][0];
+        out[(o + 1) * npad + rl] = c[mt][nt][1];
+        out[o * npad + rh] = c[mt][nt][2];
+        out[(o + 1) * npad + rh] = c[mt][nt][3];
+      }
     }
-#pragma unroll
-    for (int o = 0; o < LG_OUT; ++o) out[o * (long long)npad + r] = acc[o];
   }
 }
 
+// npad: a multiple of 128; x [12, npad] f32; block_mask [npad / 128];
+// tables feature-interleaved (lane_grid_kernel.interleave_features).
 extern "C" int lane_grid_forward(const float* x, int npad,
-                                 const int* block_mask, const float* tables,
+                                 const int* block_mask, const uint4* tables,
                                  const uint16_t* w_hidden,
                                  const uint16_t* w_out, const float* scales,
                                  int n_points, int n_levels, int sublanes,
@@ -194,10 +171,12 @@ extern "C" int lane_grid_forward(const float* x, int npad,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
+  if (npad % LG_GROUP != 0) return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int blocks_needed = (npad + LG_THREADS - 1) / LG_THREADS;
+  const int per_block = LG_WARPS * LG_TILE_RAYS;
+  const int blocks_needed = (npad + per_block - 1) / per_block;
   const int grid = blocks_needed < sms ? blocks_needed : sms;
   if (grid > 0) {
     lane_grid_forward_kernel<<<grid, LG_THREADS, LG_SMEM, stream>>>(

@@ -11,20 +11,20 @@ word, half 0 in the low 16 bits; bit 7 of the hash index selects the half.
 The training forward (`forward_train`, from
 `neural_renderer_tpu/ops/lane_grid_train_kernel.py::_train_tables2d` and
 `_make_apply_train.fwd_only`) runs the same kernel on the f32 master tables
-at entry_pack 1, S * pack rows per table, every block live.
+at entry_pack 1, S * pack rows per table, every block live. The kernels
+read either with the 4 features of one entry adjacent (`kernel_tables`).
 
 Kernel `csrc/lane_grid_forward.cu` replaces `_forward_kernel`. Persistent
-blocks of 256 threads (two 128-ray groups, one thread per ray) keep the four
-[128, 128] hidden weights and the [16, 128] output weight, bf16, in 132 KB
-of dynamic shared memory, loaded once per block. Each thread encodes its ray
-(786 KB of packed tables at S=16, read from L2 where they stay resident),
-writes its 112 features (zero-padded to 128) as bf16 to its own shared
-column, then runs the layers in f32 FMAs over bf16 operands, re-rounding
-each hidden activation to bf16. Bound on the card: operations, 2 x 65,536
-multiply-adds per ray of the MLP (layer 0 at its 112 real inputs); this
-first version runs them on the FP32 pipes (the tensor-core `mma`/`wgmma`
-form is later work), so its bound is taken against the bf16 tensor-core
-peak and it is far from it.
+blocks of 8 warps keep the four hidden weights and the output weight, bf16,
+[in][out] with padded rows, in shared memory. Each warp takes 32 rays: each
+lane encodes one ray from the feature-interleaved tables
+(`interleave_features`: the 4 features of one entry in 16 bytes, so one
+load fetches a corner; 786 KB at S=16, resident in L2) into the warp's
+channel-major staging tile, and the MLP runs on the tensor cores
+(`mma.sync.m16n8k16`, bf16 x bf16 -> f32) with the activations kept in
+registers, as K7 (`csrc/fused_mlp.cu`) does. Bound on the card: operations,
+65,536 multiply-adds per ray of the MLP (layer 0 at its 112 real inputs) at
+the bf16 tensor-core peak.
 """
 
 from __future__ import annotations
@@ -88,14 +88,48 @@ def _unpack_words(tables2d, shape):
     return halves.to(torch.int32).view(torch.float32).reshape(shape)
 
 
+def interleave_features(rows2d, lane_shape):
+    """Table rows [P*L*F*R, 128] (pack_lane_tables' words, or
+    train_tables2d's f32 rows) -> [P*L, R*128, F], contiguous: the F
+    features of one word entry adjacent (16 bytes at F=4), so the kernels
+    fetch a corner with one load. lane_shape: the masters' shape [P, L, F,
+    ...]."""
+    p_, l_, f_ = lane_shape[:3]
+    return rows2d.reshape(p_ * l_, f_, -1).transpose(1, 2).contiguous()
+
+
+def deinterleave_features(t):
+    """Inverse of interleave_features: [P*L, R*128, F] -> [P*L*F*R, 128]
+    rows. Also takes the table gradient K6 adds into that layout back to
+    the training rows (a flatten of the masters' shape)."""
+    return t.transpose(1, 2).reshape(-1, LANES)
+
+
+def kernel_tables(net: nbvh.ShellNetwork, train: bool = False):
+    """(The tables as the kernel reads them, feature-interleaved, entry
+    pack, rows per table): the inference packing (bf16 words at
+    entry_pack=2, f32 at 1, S rows) or, with `train`, the f32 masters at
+    entry_pack 1 with S * pack rows."""
+    with torch.no_grad():
+        if train:
+            rows2d, rows = train_tables2d(net.lane)
+            entry_pack = 1
+        else:
+            rows2d, entry_pack = pack_lane_tables(net.lane)
+            rows = net.lane.shape[3]
+        return (interleave_features(rows2d.detach(), net.lane.shape),
+                entry_pack, rows)
+
+
 def forward_lane_twin(net: nbvh.ShellNetwork, x_pad, block_mask):
     """Plain-PyTorch twin of the kernel on padded inputs [12, Npad]: the
-    table entries the kernel reads (unpacked from the same bf16 words at
-    entry_pack=2, f32 at 1), the same encode, and the bf16-operand /
-    f32-accumulate MLP; dead blocks output zeros."""
-    tables2d, entry_pack = pack_lane_tables(net.lane)
-    tables = (_unpack_words(tables2d, net.lane.shape) if entry_pack == 2
-              else net.lane)
+    table entries the kernel reads (`kernel_tables`, unpacked from the same
+    bf16 words at entry_pack=2, f32 at 1), the same encode, and the
+    bf16-operand / f32-accumulate MLP; dead blocks output zeros."""
+    tables4, entry_pack, _ = kernel_tables(net)
+    rows2d = deinterleave_features(tables4)
+    tables = (_unpack_words(rows2d, net.lane.shape) if entry_pack == 2
+              else rows2d.reshape(net.lane.shape))
     encoded = nbvh.encode_inputs(net, x_pad, tables=tables)
     out = nbvh.mlp_forward(list(net.mlp), encoded)
     live = torch.repeat_interleave(block_mask != 0, LANES)
@@ -116,24 +150,21 @@ def train_tables2d(tables):
 class _KernelOperands:
     """Packed tables/weights/scales for one network, cached on the module
     and rebuilt when a parameter changes (tensor version counters, which
-    the optimizer's in-place steps advance). `train`: the training layout
-    (f32 tables at entry_pack 1, `train_tables2d`) instead of the inference
-    packing."""
+    the optimizer's in-place steps advance, so training repacks once per
+    step). `train`: the training layout (f32 masters at entry_pack 1)
+    instead of the inference packing; both feature-interleaved
+    (`kernel_tables`)."""
 
     def __init__(self, net: nbvh.ShellNetwork, train: bool):
         cfg = net.config
         self.key = _params_key(net)
+        self.tables, self.entry_pack, self.sublanes = kernel_tables(net,
+                                                                   train)
         with torch.no_grad():
-            if train:
-                self.tables2d, self.sublanes = train_tables2d(net.lane)
-                self.entry_pack = 1
-            else:
-                self.tables2d, self.entry_pack = pack_lane_tables(net.lane)
-                self.sublanes = net.lane.shape[3]
-            self.tables2d = self.tables2d.detach().contiguous()
             w = pack_lane_weights(net)
-            # [in, out] row-major so a thread reads 8 consecutive outputs of
-            # one input with a single 16-byte shared-memory load.
+            # [in, out] row-major: the kernels read B fragments of the
+            # forward with ldmatrix.trans and of the backward with ldmatrix
+            # from this one copy.
             self.w_hidden = torch.stack([m.t() for m in w[:-1]]).contiguous()
             self.w_out = w[-1].t().contiguous()
         self.scales = torch.tensor(
@@ -210,7 +241,7 @@ def _launch(net, ops: _KernelOperands, x, mask):
                       device=x.device)
     p = cuda_build.ptr
     rc = lib.lane_grid_forward(
-        p(x), ctypes.c_int(npad), p(mask), p(ops.tables2d),
+        p(x), ctypes.c_int(npad), p(mask), p(ops.tables),
         p(ops.w_hidden), p(ops.w_out), p(ops.scales),
         ctypes.c_int(cfg.point_count), ctypes.c_int(cfg.n_levels),
         ctypes.c_int(ops.sublanes), ctypes.c_int(ops.entry_pack),

@@ -8,11 +8,12 @@ toolkit. The repository's conftest.py imports JAX, so run it with:
 Every test needs a CUDA device and skips without one. Tolerances: the four
 trace and sweep kernels are built with -fmad=false and evaluate the twin's
 expressions in the twin's order, so they are held bit-exact; the network
-kernel sums its bf16 products in another order than the twin's f32 matmul,
-so it is held to max|d| / max|twin| < 2e-2, as is the fused MLP kernel of
-tcnn-layout networks (tensor-core sums); the training backward kernel
-adds its f32 sums by atomics in no fixed order, so each gradient is held to
-1e-3 of the twin's largest |grad|; whole frames to
+kernel sums its bf16 products on the tensor cores in another order than the
+twin's f32 matmul (a hidden activation can move by one bf16 step), so it is
+held to max|d| / max|twin| < 2e-2, as is the fused MLP kernel of
+tcnn-layout networks; the training backward kernel takes the same
+tensor-core sums and adds its f32 sums by atomics in no fixed order, so
+each gradient is held to 1e-3 of the twin's largest |grad|; whole frames to
 tests/test_frame_interpret.py's tolerance. The matrix-formulation kernels
 (NR_TRACE_MXU=1) take their products on the tensor cores in another order
 than the twins' f32 matmuls: they are held to the JAX package's own
@@ -48,7 +49,9 @@ from neural_renderer_tpu_torch.scene.materials import Material
 from neural_renderer_tpu_torch.scene.mesh import outward_sphere
 from neural_renderer_tpu_torch.scene.scene import Scene
 from neural_renderer_tpu_torch.train import (TrainConfig, init_train_state,
-                                             make_train_step, segment_domain)
+                                             make_train_step,
+                                             sample_segment_batch,
+                                             segment_domain, shell_losses)
 
 pytestmark = pytest.mark.cuda
 
@@ -317,6 +320,95 @@ def test_network_kernel_matches_twin(cuda, entry_pack):
     assert (out[:, 128:256] == 0).all()
     rel = (out - twin).abs().max() / twin.abs().max()
     assert rel.item() < 2e-2
+
+
+def _lane_net(cuda, sublanes, entry_pack):
+    cfg = nbvh.NbvhConfig(lane_sublanes=sublanes, lane_entry_pack=entry_pack)
+    net = nbvh.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    with torch.no_grad():
+        net.lane.mul_(1e3)
+    return net
+
+
+# Ray counts: one ray, one short of and one past a 32-ray warp tile, one
+# past a 128-ray block, and a 131,072-ray slice as the frame gives K2.
+_LANE_COUNTS = [1, 31, 33, 129, 131072]
+
+
+@pytest.mark.parametrize("mask", ["dead", "mixed"])
+@pytest.mark.parametrize("n", _LANE_COUNTS)
+@pytest.mark.parametrize("sublanes,entry_pack", [(4, 1), (4, 2), (16, 1),
+                                                 (16, 2)])
+def test_network_kernel_counts_and_masks(cuda, sublanes, entry_pack, n,
+                                         mask):
+    """K2 against its twin at ragged ray counts, both table packings and
+    two table sizes: every 128-ray block without an active ray (all of them
+    with `dead`) writes zeros; the rest within 2e-2 of the largest output
+    (the tensor cores sum the f32 products in another order than the
+    twin's matmul, so a hidden activation can move by one bf16 step). The
+    wrapper launches the kernel once per call."""
+    net = _lane_net(cuda, sublanes, entry_pack)
+    g = torch.Generator().manual_seed(n)
+    x = torch.rand((12, n), generator=g).to(cuda)
+    if mask == "dead":
+        active = torch.zeros(n, dtype=torch.bool, device=cuda)
+    else:
+        active = (torch.rand(n, generator=g) < 0.5).to(cuda)
+        active[0] = True
+        active[128:256] = False
+    before = lane_grid_kernel.forward_lane.launches
+    out = lane_grid_kernel.forward_lane(net, x, active=active)
+    assert lane_grid_kernel.forward_lane.launches == before + 1
+    npad = -(-n // 128) * 128
+    block = lane_grid_kernel._block_mask(active, npad, cuda)
+    twin = lane_grid_kernel.forward_lane_twin(
+        net, torch.nn.functional.pad(x, (0, npad - n)), block)[:, :n]
+    assert out.shape == twin.shape == (16, n)
+    live = torch.repeat_interleave(block != 0, 128)[:n]
+    assert (out[:, ~live] == 0).all()
+    if mask == "dead":
+        assert (out == 0).all()
+        return
+    assert live.any()
+    rel = (out - twin).abs().max() / twin.abs().max()
+    assert rel.item() < 2e-2
+
+
+@pytest.mark.parametrize("n", _LANE_COUNTS)
+@pytest.mark.parametrize("sublanes,entry_pack", [(4, 1), (4, 2), (16, 1),
+                                                 (16, 2)])
+def test_train_kernels_counts(cuda, sublanes, entry_pack, n):
+    """The training forward (K2 at entry_pack 1) within 2e-2 of its twin
+    and K6 against backward_twin at ragged segment counts and both master
+    layouts, on segments the sampler draws from small shells under the
+    training loss's cotangent (what the trainer hands K6): every gradient
+    within 1e-3 of the twin's largest |grad| (f32 atomics add the table and
+    dW sums in no fixed order). test_train_kernels_match_twins holds K6
+    under a random cotangent."""
+    scene = Scene(original_mesh=outward_sphere(16, 32, 1.0),
+                  inner_shell=outward_sphere(16, 32, 0.8),
+                  outer_shell=outward_sphere(16, 32, 1.2))
+    meshes = [getattr(scene, m).to_tensors(cuda) for m in
+              ("original_mesh", "outer_shell", "inner_shell")]
+    omin, inv, radius = segment_domain(scene, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    with torch.no_grad():
+        batch = sample_segment_batch(gen, *meshes, omin, inv, n, radius, 2)
+    x = batch.inputs.contiguous()
+    assert x.shape == (12, n)
+    net = _lane_net(cuda, sublanes, entry_pack)
+    out = lane_grid_kernel.forward_train(net, x)
+    twin = nbvh.mlp_forward(list(net.mlp), nbvh.encode_inputs(net, x))
+    assert (out - twin).abs().max() <= 2e-2 * twin.abs().max()
+    out_req = out.detach().requires_grad_(True)
+    (cot,) = torch.autograd.grad(shell_losses(out_req, batch)[0], out_req)
+    before = lane_grid_train_kernel.backward_lane.launches
+    got = lane_grid_train_kernel.backward_lane(net, x, cot)
+    assert lane_grid_train_kernel.backward_lane.launches == before + 1
+    ref = lane_grid_train_kernel.backward_twin(net, x, cot)
+    for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]):
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
 
 
 @pytest.mark.parametrize("n", [4096, 1000])

@@ -322,12 +322,14 @@ def test_train_step_lowers_loss_and_first_loss_matches_jax():
     _, m = make_train_step_on_batch(tcfg, cfg, "cpu")(state, batch)
     losses_seen = [float(m["total"])]
     # The kernels' operand cache repacks after the optimizer's step: new
-    # bf16 weights, and the training-layout tables a view of the masters.
+    # bf16 weights, and the training-layout tables the stepped masters,
+    # feature-interleaved.
     ops1 = lane_grid_kernel._operands(state.net, train=True)
     assert ops1 is not ops0 and ops1.sublanes == 8
     assert torch.equal(ops1.w_out, state.net.mlp[4].detach()
                        .to(torch.bfloat16).t())
-    assert ops1.tables2d.data_ptr() == state.net.lane.data_ptr()
+    assert torch.equal(ops1.tables, lane_grid_kernel.interleave_features(
+        state.net.lane.detach().reshape(-1, 128), state.net.lane.shape))
     assert _rel(losses_seen[0], ref) < 1e-5, (losses_seen[0], float(ref))
     step = make_train_step(tcfg, cfg, *meshes, omin, inv, radius,
                            device="cpu")
