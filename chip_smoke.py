@@ -31,6 +31,13 @@ its training. Phases, each failing the run:
   5. hold the clustered closest-hit kernel against its twin, bit-exact in
      t, triangle id and clusters swept, on 131,072-ray slices of the knot's
      sorted 1080p camera rays (FORWARD_ONLY) and first bounce rays (ANY);
+     log how its work items split each walk (rays per item, the per-block
+     swept distribution, the pairs the kernel swept against the block
+     rule's, each with its bound; the kernels line's bound_ms counts the
+     items' pairs, its block_rule_bound_ms the block rule's; the wrapper's
+     time beside its kernels' device time from torch.profiler), holding
+     the items' counts to the block rule's by max and the kernel's
+     schedule to `work_order`;
   6. hold the dense dual-shell sweep kernel against its twin, bit-exact on
      every row with and without the second forward crossing, on 131,072
      camera rays against shells of 1,024 triangles each;
@@ -88,8 +95,9 @@ its training. Phases, each failing the run:
      absolute on rays that take the same triangle) on phases 2, 5 and 6's
      inputs: K8 on the outer-shell FORWARD_ONLY slice, K1-MXU on the
      camera fwd2 sweep, K4-MXU on the small-shell camera rays, K5-MXU on the
-     knot's sorted camera rays and first bounce rays; time kernel, twin and
-     default kernel;
+     knot's sorted camera rays and first bounce rays (there also bit-exact
+     to its twin in t, ids and clusters swept, with phase 5's item log);
+     time kernel, twin and default kernel;
  18. with NR_TRACE_MXU=1, render 480x270 through the MXU kernels and
      through their twins on the card (phase 3's bounds), then the full-size
      frame as phase 4 (seeded weights counted: K1-MXU and K8 must launch,
@@ -203,6 +211,23 @@ def time_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, prefix, reps=10):
+    """Device time in ms per fn() call of the kernels whose names contain
+    `prefix` (torch.profiler, after one warm-up call), or None where the
+    profiler saw none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if prefix in e.key)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def nbytes(*ts):
@@ -561,13 +586,20 @@ def main() -> int:
         if bool(ops[7].any()):
             raise AssertionError(f"K5 {label}: a worklist overflowed")
         mxu_inputs[f"K5 {label}"] = (args, mode)
-        ms = time_ms(lambda: trace_cluster.trace_clusters_stream(*args, mode))
+
+        def kernel():
+            return trace_cluster.trace_clusters_stream(*args, mode)
+
+        ms = time_ms(kernel)
         pms = time_ms(lambda: trace_cluster.trace_clusters_twin(*args, mode),
                       reps=2)
-        pairs = int(swept_k.sum().item()) * trace_cluster.CLUSTER_SIZE * 512
+        pairs, block_pairs = k5_items(f"K5 {label}", trace_cluster, bounds,
+                                      args, mode, kt, ktri, swept_k, ms,
+                                      kernel, mxu=False)
         entry = dict(
             max_abs_err=err, ms=ms, plain_ms=pms,
             ops_seconds=bounds.trace_seconds("local", pairs),
+            block_ops_seconds=bounds.trace_seconds("local", block_pairs),
             bytes=nbytes(*args) + 2 * 4 * kt.shape[0], library_ms=None)
         log(f"[time K5 {label}] kernel {ms:.4f} ms, twin {pms:.4f} ms, "
             f"bound {entry['ops_seconds'] * 1e3:.4f} ms")
@@ -1075,24 +1107,38 @@ def main() -> int:
         swept = torch.zeros_like(args[5])
         kt, ktri = trace_cluster.trace_clusters_stream_mxu(*args, mode, True,
                                                            swept)
-        tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, mxu=True)
         vt, vtri = trace_cluster.trace_clusters_stream(*args, mode,
                                                        mxu=False)
+        swept_t = torch.zeros_like(args[5])
+        tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, True,
+                                                     swept_t, mxu=True)
+        exact = (torch.equal(kt, tt) and torch.equal(ktri, ttri)
+                 and torch.equal(swept, swept_t))
+        log(f"[K5-MXU {label}] t, ids and swept bit-exact to the twin "
+            f"{exact}")
+        if not exact:
+            raise AssertionError(f"K5-MXU {label}: kernel != twin")
         err5m = max(err5m, hold(f"K5-MXU {label} vs twin", kt, tt, MXU_TWIN,
                                 ktri, ttri))
         hold(f"K5-MXU {label} vs K5", kt, vt, MXU_KNOT_VPU, ktri, vtri)
-        ms = time_ms(lambda: trace_cluster.trace_clusters_stream_mxu(
-            *args, mode))
+
+        def kernel_mxu():
+            return trace_cluster.trace_clusters_stream_mxu(*args, mode)
+
+        ms = time_ms(kernel_mxu)
         pms = time_ms(lambda: trace_cluster.trace_clusters_twin(
             *args, mode, mxu=True), reps=1)
         vms = time_ms(lambda: trace_cluster.trace_clusters_stream(
             *args, mode, mxu=False))
-        pairs = int(swept.sum().item()) * trace_cluster.CLUSTER_SIZE * 512
+        pairs, block_pairs = k5_items(f"K5-MXU {label}", trace_cluster,
+                                      bounds, args, mode, kt, ktri, swept,
+                                      ms, kernel_mxu, mxu=True)
         entry = mxu_entry(
             "trace_cluster_stream_mxu (clustered closest hit, matrix "
             "formulation)", "trace_cluster_stream_mxu.cu",
             "neural_renderer_tpu/ops/trace_cluster.py:169", err5m, ms, pms,
             vms, pairs, nbytes(*args) + 2 * 4 * kt.shape[0])
+        entry["block_ops_seconds"] = bounds.mxu_seconds(block_pairs)
         if label == "knot camera":
             kernels["K5-MXU"] = entry
     kernels["K5-MXU"]["max_abs_err"] = err5m
@@ -1234,6 +1280,11 @@ def main() -> int:
         out.append({f: k[f] for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if "block_ops_seconds" in k:
+            # K5, K5-MXU: bound_ms counts the pairs their items swept; this
+            # one the block rule's, the TPU kernel's walk.
+            out[-1]["block_rule_bound_ms"] = max(
+                k.pop("block_ops_seconds"), t_bytes) * 1e3
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": out}))
@@ -1241,6 +1292,46 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k5_items(label, trace_cluster, bounds, args, mode, t, tri, swept, ms,
+             kernel, mxu):
+    """Log how a clustered closest-hit kernel's work items split the walk:
+    the per-block swept distribution, W (rays per item), the pairs the
+    kernel swept (its items' walks and the passengers' pass) against the
+    block rule's pairs, each with its bound, and the wrapper's time `ms`
+    beside the device time of its kernels per `kernel()` call. Fails
+    unless one more (uncounted) launch gives the same t, ids and per-block
+    swept, the items' counts reduce by max to it and the kernel's schedule
+    equals `work_order`. Returns (the items' pairs, the block rule's)."""
+    import torch
+    res = trace_cluster.item_sweeps(*args, mode, mxu=mxu)
+    items, item_pairs = res["items"], res["pairs"]
+    w = trace_cluster.ITEM_RAYS
+    if not (torch.equal(res["t"], t) and torch.equal(res["tri"], tri)
+            and torch.equal(res["swept"], swept)
+            and torch.equal(items.amax(dim=1), swept)
+            and torch.equal(res["order"],
+                            trace_cluster.work_order(args[5]))):
+        raise AssertionError(f"{label}: work items disagree with the "
+                             "block rule or the schedule with work_order")
+    size = trace_cluster.CLUSTER_SIZE
+    block_pairs = int(swept.sum()) * 512 * size
+    rule = bounds.mxu_seconds if mxu else (
+        lambda n: bounds.trace_seconds("local", n))
+    dev = device_ms(kernel, "nr_trace_cluster")
+    log(f"[{label} items] W {w} rays per item, {items.numel()} items; "
+        f"swept per block max {int(swept.max())}, mean "
+        f"{swept.float().mean().item():.3f}, blocks with none "
+        f"{int((swept == 0).sum())} of {swept.numel()}; pairs: items "
+        f"{item_pairs} of the block rule's {block_pairs} "
+        f"({item_pairs / max(block_pairs, 1):.4f}); kernel {ms:.4f} ms a "
+        f"wrapper call, "
+        f"{'not measured' if dev is None else f'{dev:.4f}'} ms of its "
+        f"kernels' device time, against {rule(block_pairs) * 1e3:.4f} ms on the "
+        f"block rule's pairs and {rule(item_pairs) * 1e3:.4f} ms on the "
+        f"items'")
+    return item_pairs, block_pairs
 
 
 def hold(label, got, want, bounds, ids_got=None, ids_want=None):

@@ -53,18 +53,12 @@ __device__ __forceinline__ void nr_dmma(double& c0, double& c1, double a,
       : "d"(a), "d"(b));
 }
 
-// Build the features of columns [col0, col0 + MXU_TILE) of the [9, total]
-// triangle array into `tile`; threads 0..MXU_TILE-1 take one triangle each.
-// Zero (padding) triangles give zero features: det 0, culled.
-__device__ __forceinline__ void nr_mxu_stage(MxuTile* tile,
-                                             const float* __restrict__ tris,
-                                             long long total,
-                                             long long col0) {
-  const int q = threadIdx.x;
-  if (q >= MXU_TILE) return;
-  float v[9];
-#pragma unroll
-  for (int r = 0; r < 9; ++r) v[r] = tris[r * total + col0 + q];
+// The six feature columns of one triangle (v = v0, e1, e2) in B-fragment
+// order: dst[c][4 * slot + k] for n-tile slot `slot` (0-7) of the
+// triangle, product c and k4 element k.
+__device__ __forceinline__ void nr_mxu_features(const float v[9],
+                                                double (*dst)[32],
+                                                int slot) {
   const float v0x = v[0], v0y = v[1], v0z = v[2];
   const float e1x = v[3], e1y = v[4], e1z = v[5];
   const float e2x = v[6], e2y = v[7], e2z = v[8];
@@ -89,13 +83,27 @@ __device__ __forceinline__ void nr_mxu_stage(MxuTile* tile,
       {-c0, -c1, -c2, 0.0f},                // v, g0
       {-e1x, -e1y, -e1z, 0.0f},             // v, g1
       {d0, d1, d2, -s}};                    // t, g2
-  double(*dst)[32] = tile->feat[q >> 3];
-  const int g4 = (q & 7) * 4;
+  const int g4 = slot * 4;
 #pragma unroll
   for (int c = 0; c < MXU_COMBOS; ++c) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) dst[c][g4 + k] = (double)col[c][k];
   }
+}
+
+// Build the features of columns [col0, col0 + MXU_TILE) of the [9, total]
+// triangle array into `tile`; threads 0..MXU_TILE-1 take one triangle each.
+// Zero (padding) triangles give zero features: det 0, culled.
+__device__ __forceinline__ void nr_mxu_stage(MxuTile* tile,
+                                             const float* __restrict__ tris,
+                                             long long total,
+                                             long long col0) {
+  const int q = threadIdx.x;
+  if (q >= MXU_TILE) return;
+  float v[9];
+#pragma unroll
+  for (int r = 0; r < 9; ++r) v[r] = tris[r * total + col0 + q];
+  nr_mxu_features(v, tile->feat[q >> 3], q & 7);
 }
 
 // The lane's A elements of ray (o, d): element k = lane % 4 of the groups

@@ -25,13 +25,21 @@ bit-exact to `sweep_clusters_twin`: min and strict second-min are
 selections, independent of how the pairs are grouped.
 
 Closest hit: the worklist is sorted front to back by the block's
-conservative entry t, and the kernel breaks out of it once no listed
+conservative entry t, and the twin breaks out of it once no listed
 cluster can still beat any ray of the block (bound = max over rays of
 min(best_t, exit_t) against the next entry t). Kernel
-`csrc/trace_cluster_stream.cu` replaces `_stream_kernel`, with the same
-block shape and tile staging as the sweep; the bound is a block-wide max
-reduction after each cluster. Bound on the card: FP32 operations, 46 per
-pair actually swept (the wrapper can report clusters swept per block). The
+`csrc/trace_cluster_stream.cu` replaces `_stream_kernel`; its walk
+(`csrc/trace_cluster_stream.cuh`, shared with the matrix form) cuts each
+512-ray block into work items of ITEM_RAYS rays, one CUDA block each,
+that break on their own bound, launched longest worklist first
+(`work_order`) so one block's long list spreads over the card. Rows are sorted and bounds only fall, so an item stops only where
+the block's rule would sweep on without changing its rays: results equal
+the block rule's bit for bit, and a block's clusters swept is the max over
+its items (`tests/test_torch_cluster_items.py` holds that on the twin);
+rays with exit_t 0 hold no bound and take their block's count in a
+second launch.
+Bound on the card: FP32 operations, 46 per pair the kernel's items swept
+(`item_sweeps`; the block rule's sweeps count 5-16% more on the knot). The
 smallest triangle id wins among equal t, as in `trace_mesh_brute`, so
 kernel, twin and oracle agree exactly, with the break on or off.
 
@@ -62,6 +70,7 @@ from .trace_pallas import (MIN_T, MISS, _lane_pair_reduce, _mode_cull,
 
 CLUSTER_SIZE = 256
 BLOCK_RAYS = 512
+ITEM_RAYS = 32   # rays per work item of the closest-hit kernels (K5, K5-MXU)
 STREAM_K = 1024  # per-block worklist capacity (= the worklist row stride)
 _MASK_CLUSTER_CHUNK = 128
 # Ray blocks per pass of the ray-by-cluster slab test: its [3, blocks, 512,
@@ -383,10 +392,24 @@ def trace_clusters_twin(origins, dirs, tris_packed, ids, tmins, counts,
     return best_t.reshape(-1), best_tri.reshape(-1).to(torch.int32)
 
 
+def work_order(counts):
+    """The clustered trace kernels' schedule, the plain version of their
+    rank kernel (`csrc/trace_cluster_stream.cuh::nr_trace_cluster_order`):
+    worklist blocks by descending count, ties in block order (a stable
+    sort), so the longest walks start first and blocks with count 0 come
+    last. int32 [NB]."""
+    return torch.argsort(counts, descending=True, stable=True).to(
+        torch.int32)
+
+
 def _launch_trace(lib_name, origins, dirs, tris_packed, ids, tmins, counts,
-                  exit_t, mode, early_out, swept_out):
+                  exit_t, mode, early_out, swept_out, items: bool = False):
     """Check the clustered trace's operands and launch library `lib_name`
-    (its C entry has the library's name); returns (best_t, best_tri)."""
+    (its C entry has the library's name); returns (best_t, best_tri), and
+    with `items` a dict of them, "items", the clusters each work item swept
+    before its break ([NB, 512 / ITEM_RAYS] int32) and "order", the
+    schedule. `swept_out` receives the max over each block's items: the
+    block rule's count."""
     checks = [("origins", origins, torch.float32),
               ("dirs", dirs, torch.float32),
               ("tris_packed", tris_packed, torch.float32),
@@ -399,19 +422,51 @@ def _launch_trace(lib_name, origins, dirs, tris_packed, ids, tmins, counts,
     n = origins.shape[1]
     nb = n // BLOCK_RAYS
     lib = cuda_build.load(lib_name)
-    best_t = torch.empty((n,), dtype=torch.float32, device=origins.device)
-    best_tri = torch.empty((n,), dtype=torch.int32, device=origins.device)
+    dev = origins.device
+    best_t = torch.empty((n,), dtype=torch.float32, device=dev)
+    best_tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    # One scratch buffer: the schedule, then each item's clusters swept.
+    per_block = BLOCK_RAYS // ITEM_RAYS
+    scratch = torch.empty((nb * (1 + per_block),), dtype=torch.int32,
+                          device=dev)
+    order, swept = scratch[:nb], scratch[nb:].view(nb, per_block)
     p = cuda_build.ptr
     rc = getattr(lib, lib_name)(
         p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
         ctypes.c_int(tris_packed.shape[1]), p(ids), p(tmins), p(counts),
         ctypes.c_int(ids.shape[0] // max(nb, 1)), p(exit_t),
-        ctypes.c_int(mode), ctypes.c_int(int(early_out)), p(best_t),
-        p(best_tri),
-        p(swept_out) if swept_out is not None else ctypes.c_void_p(None),
-        cuda_build.stream_of(origins))
+        ctypes.c_int(mode), ctypes.c_int(int(early_out)), p(order),
+        p(best_t), p(best_tri), p(swept), cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, lib_name)
+    if swept_out is not None:
+        swept_out.copy_(swept.amax(dim=1))
+    if items:
+        return dict(t=best_t, tri=best_tri, items=swept, order=order)
     return best_t, best_tri
+
+
+def item_sweeps(origins, dirs, tris_packed, ids, tmins, counts, exit_t,
+                mode: int, mxu: bool = False):
+    """One launch of K5 (or K5-MXU) with the break on, for measurement: it
+    counts in neither wrapper's `.launches`. Returns a dict: "t", "tri";
+    "swept" per block [NB]; "items", swept per work item before its break
+    [NB, 512 / ITEM_RAYS]; "order", the schedule; "pairs", the
+    (ray, triangle) pairs the kernel swept: its items' walks plus the
+    passengers' pass (items holding a ray with exit_t 0 that stopped short
+    of their block's count sweep on to it). The block rule sweeps
+    swept.sum() * 512 * CLUSTER_SIZE."""
+    lib = "trace_cluster_stream_mxu" if mxu else "trace_cluster_stream"
+    _check_cluster_shapes(lib, origins, tris_packed)
+    swept = torch.zeros_like(counts)
+    out = _launch_trace(lib, origins, dirs, tris_packed, ids, tmins, counts,
+                        exit_t, mode, True, swept, items=True)
+    items = out["items"]
+    riders = (exit_t.reshape(items.shape[0], items.shape[1], ITEM_RAYS)
+              <= 0).any(dim=2)
+    after = torch.where(riders, swept[:, None] - items, 0)
+    out.update(swept=swept,
+               pairs=int((items + after).sum()) * ITEM_RAYS * CLUSTER_SIZE)
+    return out
 
 
 def trace_clusters_stream(origins, dirs, tris_packed, ids, tmins, counts,

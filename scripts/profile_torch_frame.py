@@ -14,8 +14,9 @@ of --spp samples per pixel through the Renderer: one warm-up batch, then
 configs/sphere/sphere.json (the tcnn-layout network, weights.bin). Prints
 the wall time per frame, the
 summed device time of all kernels and the device's idle share over the
-window, and the kernels with the largest device time (the port's CUDA
-kernels by name, the rest PyTorch's own). With --train: training steps of
+window, and the 20 kernels with the largest device time (the port's CUDA
+kernels by name, the rest PyTorch's own), then the port's kernels below
+them. With --train: training steps of
 `cli/train.py`'s step function from seeded weights on configs/knot/
 knot_lane.json (3 segments per ray) or configs/sphere/sphere_lane.json (1),
 --batch segments per step: one warm-up step, --frames steps timed by stage
@@ -222,7 +223,13 @@ def report(result, frames, label):
           f"ms/frame {dev_us / 1e3 / frames:.3f}; idle share "
           f"{1.0 - dev_us / 1e6 / wall:.3f} (profiler on)")
     print(f"{'kernel':60s} {'calls/frame':>11s} {'device ms/frame':>15s}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # The 20 largest, then the port's own kernels below them (every name
+    # that is not PyTorch's, cub's or a copy).
+    for i, e in enumerate(ranked):
+        if i >= 20 and ("at::" in e.key or "cub::" in e.key
+                        or e.key.startswith(("Memcpy", "Memset"))):
+            continue
         print(f"{e.key[:60]:60s} {e.count / frames:11.1f} "
               f"{e.self_device_time_total / 1e3 / frames:15.3f}")
 

@@ -138,6 +138,83 @@ def test_clustered_trace_kernel_bit_exact(cuda, mode, early_out):
     assert torch.equal(kt[:512][live], brute.t[live])
 
 
+def _k5_work_case(device, case):
+    """K5 / K5-MXU operands on the 9,216-triangle sphere that stress the
+    work items and their schedule: `skewed`, one 512-ray block of
+    incoherent rays with a long worklist among 15 blocks of inactive rays
+    (count 0); `ragged`, 2,900 sorted rays (6 blocks, a padded tail: no
+    whole wave of items); `bounce`, first-bounce-like rays, sorted: from
+    points just outside the surface in uniform random directions, half
+    into the sphere. In the last two a tenth of the rays are inactive
+    (exit_t 0): passengers, which the block rule sweeps to its count."""
+    mesh = outward_sphere(48, 96, 1.0).to_tensors(device)
+    if case == "skewed":
+        o, d = _rays(device, n=16 * 512, seed=13)
+        active = torch.zeros(16 * 512, dtype=torch.bool, device=device)
+        active[5 * 512:6 * 512] = True
+        ops = traversal.clustered_trace_operands(mesh, o, d, active)
+        assert int((ops[5] > 0).sum()) == 1 and int(ops[5][5]) > 20
+        return ops
+    if case == "ragged":
+        o, d = _rays(device, n=2900, seed=17)
+    else:
+        r = np.random.default_rng(19)
+        p = r.normal(size=(3, 4096))
+        p /= np.linalg.norm(p, axis=0)
+        q = r.normal(size=(3, 4096))
+        q /= np.linalg.norm(q, axis=0)
+        o = torch.as_tensor((1.001 * p).astype(np.float32), device=device)
+        d = torch.as_tensor(q.astype(np.float32), device=device)
+    active = torch.as_tensor(np.random.default_rng(23).uniform(
+        size=o.shape[1]) < 0.9, device=device)
+    order = traversal._ray_sort_order(o, d, active)
+    return traversal.clustered_trace_operands(mesh, o[:, order], d[:, order],
+                                              active[order])
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("early_out", [True, False])
+@pytest.mark.parametrize("mode", [traversal.ANY, traversal.FORWARD_ONLY,
+                                  traversal.BACKWARD_ONLY])
+@pytest.mark.parametrize("case", ["skewed", "ragged", "bounce"])
+def test_clustered_trace_items_bit_exact(cuda, case, mode, early_out, mxu):
+    """K5 and K5-MXU (work items that break on their own, longest worklist
+    first) bit-exact to their twins in t, ids and clusters swept per block;
+    the items' counts reduce by max to the block's."""
+    ops = _k5_work_case(cuda, case)
+    args = ops[:7]
+    wrapper = (trace_cluster.trace_clusters_stream_mxu if mxu
+               else trace_cluster.trace_clusters_stream)
+    swept_k = torch.zeros_like(ops[5])
+    swept_t = torch.zeros_like(ops[5])
+    before = wrapper.launches
+    kt, ktri = wrapper(*args, mode, early_out, swept_k)
+    assert wrapper.launches == before + 1
+    tt, ttri = trace_cluster.trace_clusters_twin(*args, mode, early_out,
+                                                 swept_t, mxu=mxu)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, tt) and torch.equal(ktri, ttri)
+    assert torch.equal(swept_k, swept_t)
+    assert (kt < 1e30).sum() > 100
+    if not early_out:
+        assert torch.equal(swept_k, ops[5])
+    if case == "skewed":
+        assert (kt.view(-1, 512)[ops[5] == 0] == 1e30).all()
+        assert (ktri.view(-1, 512)[ops[5] == 0] == 0).all()
+    if early_out:
+        res = trace_cluster.item_sweeps(*args, mode, mxu=mxu)
+        swept, items, pairs = res["swept"], res["items"], res["pairs"]
+        w = trace_cluster.ITEM_RAYS
+        assert wrapper.launches == before + 1
+        assert items.shape == (ops[5].shape[0], 512 // w)
+        assert torch.equal(res["t"], kt) and torch.equal(res["tri"], ktri)
+        assert torch.equal(swept, swept_k)
+        assert torch.equal(res["order"], trace_cluster.work_order(ops[5]))
+        assert torch.equal(items.amax(dim=1), swept)
+        assert int(items.sum()) * w * 256 <= pairs
+        assert pairs <= int(swept.sum()) * 512 * 256
+
+
 @pytest.mark.parametrize("with_fwd2", [True, False])
 def test_dense_sweep_kernel_bit_exact(cuda, with_fwd2):
     """K4 on small shells, with a dead block and without an inner shell."""
