@@ -18,10 +18,13 @@ its training. Phases, each failing the run:
      (one nvcc per source, in parallel);
   2. hold each kernel against its PyTorch twin on inputs taken from the
      1080p frame: the clustered sweep (camera fwd2 sweep and one bounce
-     sweep, 131,072 rays each) and the dense trace bit-exact, the fused
-     network within 2e-2 of the largest output; time kernel and twin, and
-     split the network kernel's time by timing K7 (the MLP alone) on the
-     encoded features of the slice's live rows;
+     sweep, 131,072 rays each, and 131,072 sorted camera rays of the knot
+     with fwd2 against its shells) and the dense trace bit-exact, the
+     fused network within 2e-2 of the largest output; time kernel and
+     twin (the sweep on every case, its wrapper beside its kernels'
+     device time from torch.profiler, its bound and the per-block cluster
+     counts), and split the network kernel's time by timing K7 (the MLP
+     alone) on the encoded features of the slice's live rows;
   3. render 480x270 through the kernels and through the twins on the card
      and compare the images (under 2% of pixels off by more than 3, mean
      difference under 1.0);
@@ -93,8 +96,11 @@ its training. Phases, each failing the run:
      trace, 1e-6 absolute with ids on 99% for the sweeps; on the knot, seen
      from beyond those tests' rays, t within 5e-5 relative and 5e-4
      absolute on rays that take the same triangle) on phases 2, 5 and 6's
-     inputs: K8 on the outer-shell FORWARD_ONLY slice, K1-MXU on the
-     camera fwd2 sweep, K4-MXU on the small-shell camera rays, K5-MXU on the
+     inputs: K8 on the outer-shell FORWARD_ONLY slice, K1-MXU on phase
+     2's three sweeps (there also bit-exact to its twin on every row, and
+     against K1 on the knot within those knot bounds on every ray that
+     hits in both, a sweep row having no ids; timed as K1 is), K4-MXU on
+     the small-shell camera rays, K5-MXU on the
      knot's sorted camera rays and first bounce rays (there also bit-exact
      to its twin in t, ids and clusters swept, with phase 5's item log);
      time kernel, twin and default kernel;
@@ -337,25 +343,73 @@ def main() -> int:
     params = make_params(W, H)
     kernels = {}
 
+    # ---- the knot scene (phases 2 and 5-7) ------------------------------
+    knot_cfg_path = os.path.join(ROOT, "configs", "knot", "knot_lane.json")
+    kcfg = nr_config.load_config(knot_cfg_path)
+    t0 = time.perf_counter()
+    kscene = Scene.from_config(kcfg)
+    krend = Renderer(kscene, kcfg.neural_network, device=dev)
+    gt_mesh = krend._mesh_tensors("original_mesh")
+    log(f"[knot] loaded and built in {time.perf_counter() - t0:.2f} s: "
+        f"{gt_mesh.num_triangles} triangles, "
+        f"{gt_mesh.cluster_bounds.shape[1]} clusters")
+    kpos, kyaw, kpitch = nr_config.matrix_to_camera_state(kcfg.camera.matrix)
+    krend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
+        kyaw, kpitch, kcfg.camera.yfov)))
+    krend.resize(W, H)
+    krend.set_bounce_count(kcfg.rendering.bounce_count)
+    kparams = krend._build_params(kpos, 0)
+    kpix, ksamp, _, korig, kdirs = pt.primary_rays(kparams)
+
     # ---- 2. kernels vs twins on the frame's inputs --------------------
     _, _, _, origins, dirs = pt.primary_rays(params)
     mid = (H // 2) * W - SLICE // 2
     o_s, d_s = origins[:, mid:mid + SLICE], dirs[:, mid:mid + SLICE]
 
-    def sweep_case(o, d, with_fwd2, label):
-        ops = traversal.clustered_sweep_operands(outer, inner, o, d)
+    def counts_spread(counts):
+        """The per-block cluster counts: min, mean, max and the share of
+        blocks above 1.5 x the mean."""
+        c = counts.float()
+        mean = c.mean().item()
+        return dict(count_min=int(counts.min()), count_mean=mean,
+                    count_max=int(counts.max()),
+                    share_above_1_5_mean=(c > 1.5 * mean).float().mean()
+                    .item())
+
+    k1_cases = {}   # label -> operands, fwd2 and the case's K1 numbers
+
+    def sweep_case(ops, with_fwd2, label):
+        """K1 against its twin on one case, bit-exact; time it (wrapper and
+        device time) beside its bound on the block rule's pairs."""
         ker = trace_cluster.sweep_clusters_stream(*ops, with_fwd2=with_fwd2)
         twin = trace_cluster.sweep_clusters_twin(*ops, with_fwd2=with_fwd2)
         torch.cuda.synchronize()
         err = (ker - twin).abs().max().item()
         exact = torch.equal(ker, twin)
-        log(f"[K1 {label}] rays {o.shape[1]} max|kernel - twin| {err!r} "
-            f"bit-exact {exact}")
+        log(f"[K1 {label}] rays {ops[0].shape[1]} max|kernel - twin| "
+            f"{err!r} bit-exact {exact}")
         if not exact:
             raise AssertionError(f"K1 {label}: kernel != twin")
-        return ops, err
 
-    ops1, err1 = sweep_case(o_s, d_s, True, "camera fwd2 sweep")
+        def kernel():
+            return trace_cluster.sweep_clusters_stream(*ops,
+                                                       with_fwd2=with_fwd2)
+
+        pairs = int(ops[4].sum().item()) * trace_cluster.CLUSTER_SIZE * 512
+        case = dict(ms=time_ms(kernel), device_ms=device_ms(kernel,
+                                                            "cluster"),
+                    bound_ms=bounds.trace_seconds("local", pairs) * 1e3,
+                    pairs=pairs, **counts_spread(ops[4]))
+        log(f"[time K1 {label}] kernel {case['ms']:.4f} ms a wrapper call, "
+            f"device {case['device_ms']!r} ms, bound {case['bound_ms']:.4f}"
+            f" ms; clusters per block min {case['count_min']} mean "
+            f"{case['count_mean']:.3f} max {case['count_max']}, share above "
+            f"1.5x the mean {case['share_above_1_5_mean']:.4f}")
+        k1_cases[label] = dict(ops=ops, fwd2=with_fwd2, k1=case)
+        return err
+
+    ops1 = traversal.clustered_sweep_operands(outer, inner, o_s, d_s)
+    err1 = sweep_case(ops1, True, "camera fwd2 sweep")
     mxu_inputs = {"K1": ops1}   # phases 2, 5, 6's operands for phase 17
     # One bounce sweep: camera hits of the full frame -> bounce rays, the
     # active ones in the stage's sorted compaction order.
@@ -367,9 +421,26 @@ def main() -> int:
     order = traversal._ray_sort_order(rays.origin[:, act],
                                       rays.direction[:, act])
     bsel = act[order][:SLICE]
-    _, err1b = sweep_case(rays.origin[:, bsel], rays.direction[:, bsel],
-                          False, "bounce sweep")
-    err1 = max(err1, err1b)
+    err1 = max(err1, sweep_case(traversal.clustered_sweep_operands(
+        outer, inner, rays.origin[:, bsel], rays.direction[:, bsel]), False,
+        "bounce sweep"))
+    # The knot's camera sweep: SLICE sorted camera rays around the middle
+    # of those that meet the outer shell's box, against its shells (72
+    # clusters).
+    kouter = krend._mesh_tensors("outer_shell")
+    kinner = krend._mesh_tensors("inner_shell")
+    korder = traversal._ray_sort_order(korig, kdirs, None)
+    ko, kd = korig[:, korder], kdirs[:, korder]
+    inside = torch.nonzero(trace_cluster.mesh_exit_t(
+        ko, kd, kouter.cluster_bounds, None) > 0).squeeze(1)
+    kstart = max(0, min(ko.shape[1] - SLICE,
+                        int(inside[inside.numel() // 2]) - SLICE // 2))
+    kstart -= kstart % 512
+    err1 = max(err1, sweep_case(traversal.clustered_sweep_operands(
+        kouter, kinner, ko[:, kstart:kstart + SLICE].contiguous(),
+        kd[:, kstart:kstart + SLICE].contiguous()), True,
+        "knot camera fwd2 sweep"))
+    del ko, kd, korder, inside
 
     o3, d3, tp3, bm3 = traversal.dense_trace_operands(outer, o_s, d_s)
     ker3 = trace_pallas.trace_dense(o3, d3, tp3, traversal.FORWARD_ONLY, bm3)
@@ -403,20 +474,21 @@ def main() -> int:
 
     # Timings at these shapes; bounds from this run's inputs.
     o1, d1, tp1, ids1, cnt1, _ = ops1
-    ms1 = time_ms(lambda: trace_cluster.sweep_clusters_stream(*ops1,
-                                                              with_fwd2=True))
+    cam1 = k1_cases["camera fwd2 sweep"]["k1"]
     pms1 = time_ms(lambda: trace_cluster.sweep_clusters_twin(*ops1,
                                                              with_fwd2=True),
                    reps=3)
-    pairs1 = int(cnt1.sum().item()) * trace_cluster.CLUSTER_SIZE * 512
+    pairs1 = cam1["pairs"]
     bytes1 = nbytes(o1, d1, tp1, ids1, cnt1) + 5 * 4 * o1.shape[1]
     kernels["K1"] = dict(
         name="sweep_stream (clustered dual-shell sweep)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/sweep_stream.cu",
         replaces="neural_renderer_tpu/ops/trace_cluster.py:443",
-        max_abs_err=err1, ms=ms1, plain_ms=pms1,
+        max_abs_err=err1, ms=cam1["ms"], plain_ms=pms1,
         ops_seconds=bounds.trace_seconds("local", pairs1), bytes=bytes1,
-        library_ms=None)
+        library_ms=None, device_ms=cam1["device_ms"],
+        cases={k: {f: v for f, v in c["k1"].items() if f != "pairs"}
+               for k, c in k1_cases.items()})
 
     ms3 = time_ms(lambda: trace_pallas.trace_dense(
         o3, d3, tp3, traversal.FORWARD_ONLY, bm3))
@@ -537,23 +609,6 @@ def main() -> int:
                         for k, v in totals.items()))
 
     # ---- 5. K5 on the knot's rays ---------------------------------------
-    knot_cfg_path = os.path.join(ROOT, "configs", "knot", "knot_lane.json")
-    kcfg = nr_config.load_config(knot_cfg_path)
-    t0 = time.perf_counter()
-    kscene = Scene.from_config(kcfg)
-    krend = Renderer(kscene, kcfg.neural_network, device=dev)
-    gt_mesh = krend._mesh_tensors("original_mesh")
-    log(f"[knot] loaded and built in {time.perf_counter() - t0:.2f} s: "
-        f"{gt_mesh.num_triangles} triangles, "
-        f"{gt_mesh.cluster_bounds.shape[1]} clusters")
-    kpos, kyaw, kpitch = nr_config.matrix_to_camera_state(kcfg.camera.matrix)
-    krend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
-        kyaw, kpitch, kcfg.camera.yfov)))
-    krend.resize(W, H)
-    krend.set_bounce_count(kcfg.rendering.bounce_count)
-    kparams = krend._build_params(kpos, 0)
-    kpix, ksamp, _, korig, kdirs = pt.primary_rays(kparams)
-
     def k5_case(o, d, mode, label):
         """Sorted rays -> the SLICE-ray window around the middle of those
         that meet the mesh's box -> kernel against twin."""
@@ -1023,13 +1078,13 @@ def main() -> int:
         f"PSNR {psnr16!r} dB, FLIP {flip16!r}")
 
     # ---- 17. the MXU kernels against twins and default kernels ----------
-    def hold_rows(label, ker, twin, vpu):
+    def hold_rows(label, ker, twin, vpu, vpu_bounds=MXU_VPU):
         err = 0.0
         for row in range(ker.shape[0]):
             err = max(err, hold(f"{label} row {row} vs twin", ker[row],
                                 twin[row], MXU_TWIN))
             hold(f"{label} row {row} vs default", ker[row], vpu[row],
-                 MXU_VPU)
+                 vpu_bounds)
         return err
 
     def mxu_entry(name, source, replaces, err, ms, pms, vms, pairs, nbytes_):
@@ -1064,23 +1119,51 @@ def main() -> int:
                                                  mxu=False)),
         pairs3, kernels["K3"]["bytes"])
 
+    # K1-MXU on phase 2's three sweeps: bit-exact to its twin, and within
+    # the sweeps' bounds of K1 (on the knot, seen from distance 7, the
+    # knot's bounds without ids: a sweep row has none).
+    err1m = 0.0
+    k1m_cases = {}
+    for label, c in k1_cases.items():
+        ops, fwd2 = c["ops"], c["fwd2"]
+        ker = trace_cluster.sweep_clusters_stream_mxu(*ops, with_fwd2=fwd2)
+        twin = trace_cluster.sweep_clusters_twin(*ops, fwd2, mxu=True)
+        vpu = trace_cluster.sweep_clusters_stream(*ops, with_fwd2=fwd2,
+                                                  mxu=False)
+        torch.cuda.synchronize()
+        exact = torch.equal(ker, twin)
+        log(f"[K1-MXU {label}] every row bit-exact to the twin {exact}")
+        if not exact:
+            raise AssertionError(f"K1-MXU {label}: kernel != twin")
+        err1m = max(err1m, hold_rows(
+            f"K1-MXU {label}", ker, twin, vpu,
+            dict(MXU_KNOT_VPU, t_same_id=False) if "knot" in label
+            else MXU_VPU))
+
+        def kernel_mxu():
+            return trace_cluster.sweep_clusters_stream_mxu(
+                *ops, with_fwd2=fwd2)
+
+        case = dict(ms=time_ms(kernel_mxu),
+                    device_ms=device_ms(kernel_mxu, "cluster"),
+                    bound_ms=bounds.mxu_seconds(c["k1"]["pairs"]) * 1e3,
+                    **counts_spread(ops[4]))
+        log(f"[time K1-MXU {label}] kernel {case['ms']:.4f} ms a wrapper "
+            f"call, device {case['device_ms']!r} ms, bound "
+            f"{case['bound_ms']:.4f} ms; K1 {c['k1']['ms']:.4f} ms")
+        k1m_cases[label] = case
     ops1 = mxu_inputs["K1"]
-    err1m = hold_rows(
-        "K1-MXU camera fwd2 sweep",
-        trace_cluster.sweep_clusters_stream_mxu(*ops1, with_fwd2=True),
-        trace_cluster.sweep_clusters_twin(*ops1, True, mxu=True),
-        trace_cluster.sweep_clusters_stream(*ops1, with_fwd2=True,
-                                            mxu=False))
+    cam1m = k1m_cases["camera fwd2 sweep"]
     kernels["K1-MXU"] = mxu_entry(
         "sweep_stream_mxu (clustered dual-shell sweep, matrix formulation)",
         "sweep_stream_mxu.cu", "neural_renderer_tpu/ops/trace_cluster.py:404",
-        err1m, time_ms(lambda: trace_cluster.sweep_clusters_stream_mxu(
-            *ops1, with_fwd2=True)),
+        err1m, cam1m["ms"],
         time_ms(lambda: trace_cluster.sweep_clusters_twin(
             *ops1, True, mxu=True), reps=3),
         time_ms(lambda: trace_cluster.sweep_clusters_stream(
             *ops1, with_fwd2=True, mxu=False)),
         pairs1, bytes1)
+    kernels["K1-MXU"].update(device_ms=cam1m["device_ms"], cases=k1m_cases)
 
     ops4 = mxu_inputs["K4"]
     err4m = hold_rows(
@@ -1280,6 +1363,10 @@ def main() -> int:
         out.append({f: k[f] for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if "cases" in k:
+            # K1, K1-MXU: the device time of the wrapper's kernels, and
+            # every case's time, bound and per-block cluster counts.
+            out[-1].update(device_ms=k["device_ms"], cases=k["cases"])
         if "block_ops_seconds" in k:
             # K5, K5-MXU: bound_ms counts the pairs their items swept; this
             # one the block rule's, the TPU kernel's walk.

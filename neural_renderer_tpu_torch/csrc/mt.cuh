@@ -58,6 +58,31 @@ __device__ __forceinline__ float nr_mt_t(
   return ok ? t : NR_MISS;
 }
 
+// Fold one pair into the outer shell's sweep accumulators: the strict
+// forward pair (or min) and the backward min. Forward is det > 0, backward
+// det < 0 (facing = -det).
+__device__ __forceinline__ void nr_sweep_outer(int with_fwd2, float t,
+                                               float det, float& m1f,
+                                               float& m2f, float& m1b) {
+  const float tf = det > 0.0f ? t : NR_MISS;
+  if (with_fwd2) {
+    // _strict_pair_update: m2 = min of values strictly above m1.
+    const float n1 = fminf(m1f, tf);
+    m2f = fminf(m1f > n1 ? m1f : m2f, tf > n1 ? tf : NR_MISS);
+    m1f = n1;
+  } else {
+    m1f = fminf(m1f, tf);
+  }
+  m1b = fminf(m1b, det < 0.0f ? t : NR_MISS);
+}
+
+// Fold one pair into the inner shell's: the forward and backward mins.
+__device__ __forceinline__ void nr_sweep_inner(float t, float det,
+                                               float& i1f, float& i1b) {
+  i1f = fminf(i1f, det > 0.0f ? t : NR_MISS);
+  i1b = fminf(i1b, det < 0.0f ? t : NR_MISS);
+}
+
 // Stage columns [col0, col0 + width) of a [9, total] row-major triangle
 // array into tile[9][width]; all threads of the block take part.
 template <int WIDTH>

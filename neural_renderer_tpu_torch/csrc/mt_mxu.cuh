@@ -268,29 +268,19 @@ __device__ __forceinline__ void nr_sweep_tile(MxuSweep& s,
       for (int i = 0; i < 2; ++i) {
         float det;
         const float t = nr_mxu_pair(acc, i, &det);
-        const float tf = det > 0.0f ? t : NR_MISS;
-        const float tb = det < 0.0f ? t : NR_MISS;
         if (outer) {
-          if (with_fwd2) {
-            nr_pair_merge(s.m1f[m], s.m2f[m], tf, NR_MISS);
-          } else {
-            s.m1f[m] = fminf(s.m1f[m], tf);
-          }
-          s.m1b[m] = fminf(s.m1b[m], tb);
+          nr_sweep_outer(with_fwd2, t, det, s.m1f[m], s.m2f[m], s.m1b[m]);
         } else {
-          s.i1f[m] = fminf(s.i1f[m], tf);
-          s.i1b[m] = fminf(s.i1b[m], tb);
+          nr_sweep_inner(t, det, s.i1f[m], s.i1b[m]);
         }
       }
     }
   }
 }
 
-// Merge each ray's accumulators over its quad and write the rows outer_fwd,
-// outer_bwd, inner_fwd, inner_bwd[, outer_fwd2] of out [5 or 4, npad].
-__device__ __forceinline__ void nr_sweep_write(MxuSweep& s, int with_fwd2,
-                                               int npad,
-                                               float* __restrict__ out) {
+// Merge each ray's accumulators over its quad (the strict pair and the mins
+// are selections: grouping-independent).
+__device__ __forceinline__ void nr_sweep_quad(MxuSweep& s, int with_fwd2) {
 #pragma unroll
   for (int m = 0; m < MXU_MT; ++m) {
     if (with_fwd2) {
@@ -301,6 +291,17 @@ __device__ __forceinline__ void nr_sweep_write(MxuSweep& s, int with_fwd2,
     s.m1b[m] = nr_quad_min(s.m1b[m]);
     s.i1f[m] = nr_quad_min(s.i1f[m]);
     s.i1b[m] = nr_quad_min(s.i1b[m]);
+  }
+}
+
+// Merge each ray's accumulators over its quad and write the rows outer_fwd,
+// outer_bwd, inner_fwd, inner_bwd[, outer_fwd2] of out [5 or 4, npad].
+__device__ __forceinline__ void nr_sweep_write(MxuSweep& s, int with_fwd2,
+                                               int npad,
+                                               float* __restrict__ out) {
+  nr_sweep_quad(s, with_fwd2);
+#pragma unroll
+  for (int m = 0; m < MXU_MT; ++m) {
     if ((threadIdx.x & 3) == 0) {
       const long long r = nr_mxu_ray_index(m);
       out[r] = s.m1f[m];

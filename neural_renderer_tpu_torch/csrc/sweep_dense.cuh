@@ -23,23 +23,6 @@
 #define SD_BLOCK_RAYS 512
 #define SD_TILE 256
 
-// Fold one pair into the outer shell's accumulators: the strict forward
-// pair (or min) and the backward min.
-__device__ __forceinline__ void nr_sweep_outer(int with_fwd2, float t,
-                                               float det, float& m1f,
-                                               float& m2f, float& m1b) {
-  const float tf = det > 0.0f ? t : NR_MISS;
-  if (with_fwd2) {
-    // _strict_pair_update: m2 = min of values strictly above m1.
-    const float n1 = fminf(m1f, tf);
-    m2f = fminf(m1f > n1 ? m1f : m2f, tf > n1 ? tf : NR_MISS);
-    m1f = n1;
-  } else {
-    m1f = fminf(m1f, tf);
-  }
-  m1b = fminf(m1b, det < 0.0f ? t : NR_MISS);
-}
-
 template <class M>
 __global__ void __launch_bounds__(SD_BLOCK_RAYS)
 nr_sweep_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -72,11 +55,8 @@ nr_sweep_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
         for (int q = 0; q < SD_TILE; q += 2) {
           float t[2], det[2];
           M::template pair2<SD_TILE>(rs, tile, q, t, det);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            i1f = fminf(i1f, det[i] > 0.0f ? t[i] : NR_MISS);
-            i1b = fminf(i1b, det[i] < 0.0f ? t[i] : NR_MISS);
-          }
+          nr_sweep_inner(t[0], det[0], i1f, i1b);
+          nr_sweep_inner(t[1], det[1], i1f, i1b);
         }
       }
     }

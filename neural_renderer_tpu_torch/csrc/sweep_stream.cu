@@ -1,95 +1,35 @@
 // Clustered dual-shell sweep (replaces the TPU kernel
 // neural_renderer_tpu/ops/trace_cluster.py::_sweep_stream_kernel).
 //
-// One block per 512-ray worklist block, one thread per ray. The block reads
-// its own cluster count and worklist row, stages each listed cluster's
-// [9, 256] triangle tile (9 KB) in shared memory and sweeps it; each thread
-// keeps the five accumulators (outer fwd strict pair, outer bwd, inner fwd,
-// inner bwd) in registers. Outer/inner is decided per cluster (id <
-// outer_clusters), uniform across the block. No early-out: all four minima
-// must be exact.
+// Work items on the clustered walk of csrc/trace_cluster_stream.cuh (the
+// closest-hit kernels' walk, with no break): each 512-ray worklist block
+// is cut into items of 64 rays, one 128-thread CUDA block each, launched
+// longest worklist first (the rank kernel nr_trace_cluster_order); an item
+// stages each listed cluster's 256 triangles into a cp.async double
+// buffer while the previous cluster is swept. Thread (s, l) takes rays l
+// and l + 32 and a quarter of each cluster, reading each triangle from the
+// triangle-major tile as three 16-byte broadcast loads for both rays, and
+// folds each pair into its ray's five accumulators (outer forward strict pair, outer backward,
+// inner forward, inner backward; outer/inner decided per cluster, id <
+// outer_clusters, and the second forward crossing a template argument).
+// The four slices fold per ray through shared memory by the strict-pair
+// rule and mins: min and strict second-min are selections, so the result
+// is the twin's bit for bit (-fmad=false). No early out: all four minima
+// must be exact. Blocks with count 0 write 1e30 to every row.
 //
-// Bound: FP32 operations, ~45 per swept (ray, triangle) pair. The inner loop
-// reads triangle data as shared-memory broadcasts and does pure register
-// arithmetic.
-#include "mt.cuh"
-
-#define SWEEP_BLOCK_RAYS 512
-#define SWEEP_CLUSTER 256
-
-__global__ void __launch_bounds__(SWEEP_BLOCK_RAYS)
-sweep_stream_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    int npad, const float* __restrict__ tris, int ttot,
-                    const int* __restrict__ ids,
-                    const int* __restrict__ counts, int k,
-                    int outer_clusters, int with_fwd2,
-                    float* __restrict__ out) {
-  __shared__ float tile[9][SWEEP_CLUSTER];
-  const int b = blockIdx.x;
-  const long long r = (long long)b * SWEEP_BLOCK_RAYS + threadIdx.x;
-  const float ox = o[r], oy = o[npad + r], oz = o[2LL * npad + r];
-  const float dx = d[r], dy = d[npad + r], dz = d[2LL * npad + r];
-  float m1f = NR_MISS, m2f = NR_MISS, m1b = NR_MISS;
-  float i1f = NR_MISS, i1b = NR_MISS;
-  const int cnt = counts[b];
-  const int* row = ids + (long long)b * k;
-  for (int j = 0; j < cnt; ++j) {
-    const int c = row[j];
-    __syncthreads();  // previous tile fully consumed
-    nr_stage_tile<SWEEP_CLUSTER>(tile, tris, ttot,
-                                 (long long)c * SWEEP_CLUSTER);
-    __syncthreads();
-    if (c < outer_clusters) {
-#pragma unroll 4
-      for (int q = 0; q < SWEEP_CLUSTER; ++q) {
-        float det;
-        const float t = nr_mt_t(ox, oy, oz, dx, dy, dz, tile[0][q],
-                                tile[1][q], tile[2][q], tile[3][q],
-                                tile[4][q], tile[5][q], tile[6][q],
-                                tile[7][q], tile[8][q], &det);
-        const float tf = det > 0.0f ? t : NR_MISS;
-        const float tb = det < 0.0f ? t : NR_MISS;
-        if (with_fwd2) {
-          // _strict_pair_update: m2 = min of values strictly above m1.
-          const float n1 = fminf(m1f, tf);
-          m2f = fminf(m1f > n1 ? m1f : m2f, tf > n1 ? tf : NR_MISS);
-          m1f = n1;
-        } else {
-          m1f = fminf(m1f, tf);
-        }
-        m1b = fminf(m1b, tb);
-      }
-    } else {
-#pragma unroll 4
-      for (int q = 0; q < SWEEP_CLUSTER; ++q) {
-        float det;
-        const float t = nr_mt_t(ox, oy, oz, dx, dy, dz, tile[0][q],
-                                tile[1][q], tile[2][q], tile[3][q],
-                                tile[4][q], tile[5][q], tile[6][q],
-                                tile[7][q], tile[8][q], &det);
-        i1f = fminf(i1f, det > 0.0f ? t : NR_MISS);
-        i1b = fminf(i1b, det < 0.0f ? t : NR_MISS);
-      }
-    }
-  }
-  out[r] = m1f;
-  out[npad + r] = m1b;
-  out[2LL * npad + r] = i1f;
-  out[3LL * npad + r] = i1b;
-  if (with_fwd2) out[4LL * npad + r] = m2f;
-}
+// Bound: FP32 operations, 46 per swept (ray, triangle) pair
+// (ops/bounds.py), on sum(counts) x 512 x 256 pairs: the items sweep
+// exactly the block-sized worklists' pairs.
+#include "trace_cluster_stream.cuh"
 
 extern "C" int sweep_stream(const float* o, const float* d, int npad,
                             const float* tris, int ttot, const int* ids,
                             const int* counts, int k, int outer_clusters,
-                            int with_fwd2, float* out, cudaStream_t stream) {
-  const int nb = npad / SWEEP_BLOCK_RAYS;
-  if (nb > 0) {
-    sweep_stream_kernel<<<nb, SWEEP_BLOCK_RAYS, 0, stream>>>(
-        o, d, npad, tris, ttot, ids, counts, k, outer_clusters, with_fwd2,
-        out);
-  }
-  return static_cast<int>(cudaGetLastError());
+                            int with_fwd2, int* order, float* out,
+                            cudaStream_t stream) {
+  return nr_sweep_cluster_items_launch<SweepMt>(
+      o, d, npad, tris, ttot, ids, counts, k, outer_clusters, with_fwd2,
+      order, out, stream);
 }
 
 NR_ERROR_STRING_ENTRY

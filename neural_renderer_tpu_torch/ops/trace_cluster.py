@@ -14,15 +14,23 @@ Sweep: clusters of both shells in one id space (outer first), listed in id
 order; the kernel runs Möller–Trumbore only against those and emits, per
 ray, the closest outer-forward, outer-backward, inner-forward and
 inner-backward t, plus the strict second outer-forward t (1e30 on a miss).
-Kernel `csrc/sweep_stream.cu` replaces `_sweep_stream_kernel`. One CUDA
-block per 512-ray worklist block (the TPU's granularity), one thread per
-ray; the block loads its own count and worklist row, stages each cluster's
-[9, 256] f32 tile (9 KB) in shared memory and loops its ray over it with
-the five accumulators in registers. Bound on the card: FP32 operations,
-46 per swept (ray, triangle) pair (`ops/bounds.py`); the block-sized
-worklist keeps the swept pairs at the block frustum's footprint. Built with -fmad=false, it is
-bit-exact to `sweep_clusters_twin`: min and strict second-min are
-selections, independent of how the pairs are grouped.
+Kernel `csrc/sweep_stream.cu` replaces `_sweep_stream_kernel`. It runs
+on the closest-hit kernels' walk (`csrc/trace_cluster_stream.cuh`, below)
+with no break: each 512-ray worklist block is cut into work items of 64
+rays, one CUDA block each, launched longest worklist first (`work_order`),
+and every item sweeps its block's whole list, each cluster's 256
+triangles staged into a double buffer while the previous one is swept.
+An item's threads split each cluster into slices per ray (4 of 64
+triangles; 2 halves of each feature chunk in the matrix form), keep the
+five accumulators per slice and fold them per ray at the end: the strict
+pair by the multiset rule, the rest by min
+(`tests/test_torch_cluster_items.py` holds that slicing on the twin).
+Bound on the card: FP32 operations, 46 per swept (ray, triangle) pair
+(`ops/bounds.py`) on the block rule's pairs, sum(counts) x 512 x 256;
+the block-sized worklist keeps them at the block frustum's footprint.
+Built with -fmad=false, it is bit-exact to `sweep_clusters_twin`: min
+and strict second-min are selections, independent of how the pairs are
+grouped.
 
 Closest hit: the worklist is sorted front to back by the block's
 conservative entry t, and the twin breaks out of it once no listed
@@ -46,7 +54,9 @@ kernel, twin and oracle agree exactly, with the break on or off.
 With `NR_TRACE_MXU=1` (or `mxu=True`) both wrappers take the matrix
 formulation of `ops/trace_mxu.py`: `sweep_clusters_stream` the kernel
 `csrc/sweep_stream_mxu.cu`, which replaces the `mxu=True` body of
-`_sweep4_cluster` (`trace_cluster.py:392-440`), and `trace_clusters_stream`
+`_sweep4_cluster` (`trace_cluster.py:392-440`) on the same work items,
+and
+`trace_clusters_stream`
 the kernel `csrc/trace_cluster_stream_mxu.cu`, which replaces the `mxu=True`
 body of `_sweep_cluster` (`trace_cluster.py:156-191`). Worklists, the break
 with its exit-t cap and margin, and the tie rule stay as above; only the
@@ -266,7 +276,8 @@ def sweep_clusters_twin(origins, dirs, tris_packed, ids, counts,
 def _launch_sweep(lib_name, origins, dirs, tris_packed, ids, counts,
                   outer_clusters, with_fwd2):
     """Check the clustered sweep's operands and launch library `lib_name`
-    (its C entry has the library's name); returns [5 or 4, Npad]."""
+    (its C entry has the library's name) with its schedule's scratch
+    (`order`, as `_launch_trace`); returns [5 or 4, Npad]."""
     cuda_build.check_operands(lib_name, (
         ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
         ("tris_packed", tris_packed, torch.float32),
@@ -276,12 +287,14 @@ def _launch_sweep(lib_name, origins, dirs, tris_packed, ids, counts,
     lib = cuda_build.load(lib_name)
     out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
                       device=origins.device)
+    order = torch.empty((nb,), dtype=torch.int32, device=origins.device)
     p = cuda_build.ptr
     rc = getattr(lib, lib_name)(
         p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
         ctypes.c_int(tris_packed.shape[1]), p(ids), p(counts),
-        ctypes.c_int(ids.shape[0] // nb), ctypes.c_int(outer_clusters),
-        ctypes.c_int(int(with_fwd2)), p(out), cuda_build.stream_of(origins))
+        ctypes.c_int(ids.shape[0] // max(nb, 1)),
+        ctypes.c_int(outer_clusters), ctypes.c_int(int(with_fwd2)), p(order),
+        p(out), cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, lib_name)
     return out
 

@@ -91,6 +91,92 @@ def test_sweep_kernel_bit_exact(cuda, with_fwd2):
     assert torch.equal(ker, twin)
 
 
+def _edge_rays(mesh, n, seed):
+    """n rays from a radius-3 sphere at midpoints of `mesh`'s triangle
+    edges, where two triangles give equal t's
+    (tests/test_torch_cluster_items.py)."""
+    tp = mesh.tris_packed[:, :mesh.num_triangles].cpu().numpy()
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, tp.shape[1], n)
+    v0, e1, e2 = tp[0:3, idx], tp[3:6, idx], tp[6:9, idx]
+    half = np.float32(0.5)
+    edge = r.integers(0, 3, n)
+    p = np.where(edge == 0, v0 + half * e1,
+                 np.where(edge == 1, v0 + half * e2,
+                          v0 + half * e1 + half * e2)).astype(np.float32)
+    o = r.normal(size=(3, n))
+    o = (3.0 * o / np.linalg.norm(o, axis=0)).astype(np.float32)
+    d = (p - o).astype(np.float64)
+    d /= np.linalg.norm(d, axis=0)
+    return np.concatenate([o, d.astype(np.float32)])
+
+
+def _k1_work_case(device, case):
+    """K1's operands for one worklist shape: `skewed` (block 0 lists every
+    cluster, the others one each), `empty` (every third block lists
+    none), `single` (one 512-ray block), `edges` (rays at the shells'
+    shared edges) and `two_lobes` (the second forward crossing's case)."""
+    outer, inner = _shells(device)
+    if case == "single":
+        return traversal.clustered_sweep_operands(outer, inner,
+                                                  *_rays(device, n=512))
+    if case == "edges":
+        od = np.concatenate([_edge_rays(outer, 2048, 3),
+                             _edge_rays(inner, 1024, 4)], axis=1)
+        od = torch.as_tensor(od, device=device)
+        return traversal.clustered_sweep_operands(outer, inner, od[:3],
+                                                  od[3:])
+    if case == "two_lobes":
+        r = np.random.default_rng(23)
+        o = np.stack([np.full(4096, -3.0), *r.uniform(-0.3, 0.3, (2, 4096))])
+        d = np.stack([np.ones(4096), *r.uniform(-0.05, 0.05, (2, 4096))])
+        d /= np.linalg.norm(d, axis=0)
+        return traversal.clustered_sweep_operands(
+            _two_lobes(device, 24), outward_sphere(4, 8, 0.3).to_tensors(
+                device),
+            torch.as_tensor(o.astype(np.float32), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+    o, d, tp, ids, counts, co = traversal.clustered_sweep_operands(
+        outer, inner, *_rays(device, n=16 * 512, seed=29))
+    nb = counts.shape[0]
+    if case == "skewed":
+        clusters = tp.shape[1] // trace_cluster.CLUSTER_SIZE
+        rows = ids.view(nb, -1)
+        rows[0, :clusters] = torch.arange(clusters, device=device)
+        rows[1:, 0] = torch.arange(1, nb, device=device) % clusters
+        counts = torch.ones_like(counts)
+        counts[0] = clusters
+    else:
+        counts = counts.clone()
+        counts[::3] = 0
+    return o, d, tp, ids, counts, co
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("with_fwd2", [True, False])
+@pytest.mark.parametrize("case", ["skewed", "empty", "single", "edges",
+                                  "two_lobes"])
+def test_sweep_items_bit_exact(cuda, case, with_fwd2, mxu):
+    """K1 and K1-MXU (work items on the clustered walk, longest worklist
+    first) bit-exact to their twins on every row; blocks with count 0
+    write the miss."""
+    ops = _k1_work_case(cuda, case)
+    wrapper = (trace_cluster.sweep_clusters_stream_mxu if mxu
+               else trace_cluster.sweep_clusters_stream)
+    before = wrapper.launches
+    ker = wrapper(*ops, with_fwd2=with_fwd2)
+    assert wrapper.launches == before + 1
+    twin = trace_cluster.sweep_clusters_twin(*ops, with_fwd2, mxu=mxu)
+    torch.cuda.synchronize()
+    assert ker.shape == (5 if with_fwd2 else 4, ops[0].shape[1])
+    assert torch.equal(ker, twin)
+    assert (ker[0] < 1e30).sum() > 200
+    empty = (ops[4] == 0).repeat_interleave(512)
+    assert (ker[:, empty] == 1e30).all()
+    if case == "two_lobes" and with_fwd2:
+        assert (ker[4] < 1e30).sum() > 3000
+
+
 @pytest.mark.parametrize("mode", [traversal.ANY, traversal.FORWARD_ONLY,
                                   traversal.BACKWARD_ONLY])
 def test_dense_kernel_bit_exact(cuda, mode):
