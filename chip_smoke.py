@@ -19,7 +19,9 @@ its training. Phases, each failing the run:
   2. hold each kernel against its PyTorch twin on inputs taken from the
      1080p frame: the clustered sweep (camera fwd2 sweep and one bounce
      sweep, 131,072 rays each, and 131,072 sorted camera rays of the knot
-     with fwd2 against its shells) and the dense trace bit-exact, the
+     with fwd2 against its shells) and the dense trace bit-exact (on the
+     outer shell, FORWARD_ONLY: the 131,072-ray slice and, alone, its first
+     live 512-ray block, the launch with the most triangle slices), the
      fused network within 2e-2 of the largest output; time kernel and
      twin (the sweep on every case, its wrapper beside its kernels'
      device time from torch.profiler, its bound and the per-block cluster
@@ -43,7 +45,9 @@ its training. Phases, each failing the run:
      schedule to `work_order`;
   6. hold the dense dual-shell sweep kernel against its twin, bit-exact on
      every row with and without the second forward crossing, on 131,072
-     camera rays against shells of 1,024 triangles each;
+     camera rays against shells of 1,024 triangles each and on their first
+     live 512-ray block alone; the dense kernels' bounds count the pairs
+     their prefilter leaves (the 46 operations per pair beside them);
   7. run `evaluate` on the knot at 480x270 with the config's 64 samples and
      hold it to the JAX package's gate for this scene (PSNR >= 40.2 dB, mean
      FLIP <= 0.018), then at 1920x1080 with 8 samples in one batch, every
@@ -124,9 +128,9 @@ its training. Phases, each failing the run:
      form's tensor-core sums within ABLATE_MXU_BF16) and against the
      production kernels (`local` and the block and tile variants bit-exact
      against K3, `recip` and `sweep_recip` too; nodiv and recipx within
-     ABLATE_ULPS; bf16 within ABLATE_BF16; mxu_hi (K8) and sweep_mxu
-     (K4-MXU) bit-exact to their twins and within phase 17's bounds of K3
-     and K4); time each twin;
+     ABLATE_ULPS; bf16 within ABLATE_BF16; current (K3), sweep (K4),
+     mxu_hi (K8) and sweep_mxu (K4-MXU) bit-exact to their twins, the last
+     two within phase 17's bounds of K3 and K4); time each twin;
  21. run `evaluate` on the shipped lane sphere (configs/sphere/
      sphere_lane.json) at 480x270 x 64 and hold it to 1 dB under the JAX
      record (PSNR >= 50.54 dB, mean FLIP <= 0.018); then run bench_torch.py
@@ -459,6 +463,22 @@ def main() -> int:
     if not exact3:
         raise AssertionError("K3: kernel != twin")
     mxu_inputs["K3"] = (o3, d3, tp3, bm3)
+    fwd = traversal.FORWARD_ONLY
+    case3 = dense_case(
+        lambda: trace_pallas.trace_dense(o3, d3, tp3, fwd, bm3),
+        lambda: twin3, (o3, d3, tp3, bm3), fwd, outer.num_triangles,
+        smoke_times, fp32=True)
+    block3 = first_live_block(o3, d3, bm3)
+    case3_block = dense_case(
+        lambda: trace_pallas.trace_dense(*block3[:2], tp3, fwd, block3[2]),
+        lambda: trace_pallas.trace_dense_twin(*block3[:2], tp3, fwd,
+                                              block3[2]),
+        (*block3[:2], tp3, block3[2]), fwd, outer.num_triangles,
+        smoke_times, fp32=True)
+    log(f"[K3 outer FORWARD_ONLY] the slice: {case3}; its first live "
+        f"512-ray block alone: {case3_block}")
+    if not (case3["exact"] and case3_block["exact"]):
+        raise AssertionError("K3: kernel != twin")
 
     entry_pos, active, _, sw1 = _camera_fwd2_entry(ctx, origins, dirs)
     net_in = segment_inputs(ctx, params, dirs, entry_pos, active, sw=sw1)[0]
@@ -494,21 +514,20 @@ def main() -> int:
         cases={k: {f: v for f, v in c["k1"].items() if f != "pairs"}
                for k, c in k1_cases.items()})
 
-    ms3 = time_ms(lambda: trace_pallas.trace_dense(
-        o3, d3, tp3, traversal.FORWARD_ONLY, bm3))
     pms3 = time_ms(lambda: trace_pallas.trace_dense_twin(
         o3, d3, tp3, traversal.FORWARD_ONLY, bm3), reps=3)
-    # The bound counts the shell's real triangles, not the kernel's padding
+    # The bounds count the shell's real triangles, not the kernel's padding
     # of them to whole 512-triangle tiles.
-    pairs3 = int(bm3.sum().item()) * 512 * outer.num_triangles
     kernels["K3"] = dict(
         name="trace_dense (dense closest hit)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/trace_dense.cu",
         replaces="neural_renderer_tpu/ops/trace_pallas.py:44",
-        max_abs_err=err3, ms=ms3, plain_ms=pms3,
-        ops_seconds=bounds.trace_seconds("local", pairs3),
+        max_abs_err=err3, ms=case3["ms"], plain_ms=pms3,
+        ops_seconds=case3["bound_ms"] * 1e-3,
+        mt46_seconds=case3["mt46_bound_ms"] * 1e-3,
         bytes=nbytes(o3, d3, bm3) + 9 * 4 * outer.num_triangles
-        + 2 * 4 * o3.shape[1], library_ms=None)
+        + 2 * 4 * o3.shape[1], library_ms=None,
+        device_ms=case3["device_ms"], cases={"one_block": case3_block})
 
     ms2 = time_ms(lambda: lane_grid_kernel.forward_lane(net, x_s,
                                                         active=a_s))
@@ -697,22 +716,41 @@ def main() -> int:
         if not exact4:
             raise AssertionError(f"K4 fwd2={fwd2}: kernel != twin")
         err4 = max(err4, e)
-    ms4 = time_ms(lambda: trace_pallas.sweep_shells_dense(*ops4[:4], True,
-                                                          ops4[4]))
+    real_tris4 = so.num_triangles + si.num_triangles
+    o4, d4, tp4, cols4, bm4 = ops4
+    case4 = dense_case(
+        lambda: trace_pallas.sweep_shells_dense(o4, d4, tp4, cols4, True,
+                                                bm4),
+        lambda: trace_pallas.sweep_shells_dense_twin(o4, d4, tp4, cols4,
+                                                     True, bm4),
+        (o4, d4, tp4, bm4), 0, real_tris4, smoke_times, fp32=True)
+    block4 = first_live_block(o4, d4, bm4)
+    case4_block = dense_case(
+        lambda: trace_pallas.sweep_shells_dense(*block4[:2], tp4, cols4,
+                                                True, block4[2]),
+        lambda: trace_pallas.sweep_shells_dense_twin(*block4[:2], tp4,
+                                                     cols4, True, block4[2]),
+        (*block4[:2], tp4, block4[2]), 0, real_tris4, smoke_times,
+        fp32=True)
+    log(f"[K4 camera sweep fwd2] the slice: {case4}; its first live 512-ray "
+        f"block alone: {case4_block}")
+    if not (case4["exact"] and case4_block["exact"]):
+        raise AssertionError("K4: kernel != twin")
     pms4 = time_ms(lambda: trace_pallas.sweep_shells_dense_twin(
         *ops4[:4], True, ops4[4]), reps=3)
-    real_tris4 = so.num_triangles + si.num_triangles
-    pairs4 = int(ops4[4].sum().item()) * 512 * real_tris4
     kernels["K4"] = dict(
         name="sweep_dense (dense dual-shell sweep)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/sweep_dense.cu",
         replaces="neural_renderer_tpu/ops/trace_pallas.py:95",
-        max_abs_err=err4, ms=ms4, plain_ms=pms4,
-        ops_seconds=bounds.trace_seconds("local", pairs4),
+        max_abs_err=err4, ms=case4["ms"], plain_ms=pms4,
+        ops_seconds=case4["bound_ms"] * 1e-3,
+        mt46_seconds=case4["mt46_bound_ms"] * 1e-3,
         bytes=nbytes(ops4[0], ops4[1], ops4[4]) + 9 * 4 * real_tris4
-        + 5 * 4 * SLICE, library_ms=None)
-    log(f"[time K4] kernel {ms4:.4f} ms, twin {pms4:.4f} ms, bound "
-        f"{kernels['K4']['ops_seconds'] * 1e3:.4f} ms")
+        + 5 * 4 * SLICE, library_ms=None, device_ms=case4["device_ms"],
+        cases={"one_block": case4_block})
+    log(f"[time K4] kernel {case4['ms']:.4f} ms, twin {pms4:.4f} ms, bound "
+        f"{case4['bound_ms']:.4f} ms (46 per pair: "
+        f"{case4['mt46_bound_ms']:.4f})")
 
     # ---- 7. evaluate on the knot ----------------------------------------
     all_counters = {
@@ -1416,9 +1454,15 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if "cases" in k:
-            # K1, K1-MXU: the device time of the wrapper's kernels, and
-            # every case's time, bound and per-block cluster counts.
+            # K1, K1-MXU and the dense kernels: the device time of the
+            # wrapper's kernels, and every case's time and bound (K1's with
+            # its per-block cluster counts).
             out[-1].update(device_ms=k["device_ms"], cases=k["cases"])
+        if "mt46_seconds" in k:
+            # K3, K4: bound_ms counts the pairs their prefilter leaves; this
+            # one Möller–Trumbore's 46 operations on every pair.
+            out[-1]["mt46_bound_ms"] = max(k.pop("mt46_seconds"),
+                                           t_bytes) * 1e3
         if "block_ops_seconds" in k:
             # K5, K5-MXU: bound_ms counts the pairs their items swept; this
             # one the block rule's, the TPU kernel's walk.
@@ -1482,24 +1526,33 @@ def k5_items(label, trace_cluster, bounds, args, mode, t, tri, swept, ms,
     return item_s, block_s
 
 
-def dense_case(fn, twin, operands, mode, real_tris, timings):
-    """One case of a dense matrix-form kernel (K8, K4-MXU) on operands
-    (origins, dirs, triangles, skip flags), fn() the call of its wrapper and
-    twin() its twin's result: rays, live 512-ray blocks, whether fn()
-    equals twin() bit for bit, the pairs the prefilter leaves to the
-    epilogue, the bound on the live blocks' real pairs and timings(fn)'s
-    times. scripts/compare_trace_cluster_kernels.py runs it on earlier
-    checkouts too: one without `trace_mxu.epilogue_pairs` bounds the pairs
-    as it did then."""
+def dense_case(fn, twin, operands, mode, real_tris, timings, fp32=False):
+    """One case of a dense kernel (K8, K4-MXU; with fp32 K3, K4) on
+    operands (origins, dirs, triangles, skip flags), fn() the call of its
+    wrapper and twin() its twin's result: rays, live 512-ray blocks,
+    whether fn() equals twin() bit for bit, the pairs the prefilter leaves
+    (to the matrix form's epilogue; to the FP32 kernels' second test and
+    to the rest of Möller–Trumbore), the bound on the live blocks' real
+    pairs (the FP32 kernels' also at 46 operations a pair) and
+    timings(fn)'s times. scripts/compare_trace_cluster_kernels.py runs it
+    on earlier checkouts too: one without the prefilter's count bounds the
+    pairs as it did then."""
     import torch
-    from neural_renderer_tpu_torch.ops import bounds, trace_mxu
+    from neural_renderer_tpu_torch.ops import bounds, trace_mxu, trace_pallas
     mask = operands[3]
     live = int(mask.sum())
     pairs = live * 512 * real_tris
     res = dict(rays=int(operands[0].shape[1]), live_blocks=live,
                blocks=int(mask.numel()), tris=real_tris,
                exact=bool(torch.equal(fn(), twin())))
-    if hasattr(trace_mxu, "epilogue_pairs"):
+    if fp32:
+        res["mt46_bound_ms"] = bounds.trace_seconds("local", pairs) * 1e3
+        res["bound_ms"] = res["mt46_bound_ms"]
+        if hasattr(trace_pallas, "prefilter_pairs"):
+            left = trace_pallas.prefilter_pairs(*operands[:4], mode)
+            res["prefilter_pairs"] = left
+            res["bound_ms"] = bounds.dense_seconds(pairs, *left) * 1e3
+    elif hasattr(trace_mxu, "epilogue_pairs"):
         res["epilogue_pairs"] = trace_mxu.epilogue_pairs(*operands[:4], mode)
         res["bound_ms"] = bounds.mxu_seconds(
             pairs, converted=res["epilogue_pairs"]) * 1e3
@@ -1507,6 +1560,15 @@ def dense_case(fn, twin, operands, mode, real_tris, timings):
         res["bound_ms"] = bounds.mxu_seconds(pairs) * 1e3
     res.update(timings(fn))
     return res
+
+
+def first_live_block(o, d, mask):
+    """(origins, dirs, flag) of the first live 512-ray block of a dense
+    kernel's operands, alone: a launch with the most triangle slices."""
+    b = int(mask.nonzero()[0])
+    return (o[:, b * 512:(b + 1) * 512].contiguous(),
+            d[:, b * 512:(b + 1) * 512].contiguous(),
+            mask[b:b + 1].contiguous())
 
 
 def smoke_times(fn, ms=None):
@@ -1519,14 +1581,15 @@ def smoke_times(fn, ms=None):
 
 
 @contextlib.contextmanager
-def recording_dense(traversal, trace_mxu):
+def recording_dense(traversal, trace_mxu, matrix=True):
     """For the duration of the block, record the operands (cloned) of every
-    matrix-form dense trace made through `traversal.trace_dense`: yields
-    the list of (origins, dirs, triangles, mode, skip flags)."""
+    dense trace made through `traversal.trace_dense` in the matrix
+    formulation (matrix) or the FP32 one (not matrix): yields the list of
+    (origins, dirs, triangles, mode, skip flags)."""
     calls, real = [], traversal.trace_dense
 
     def record(o, d, tp, mode, mask, mxu=None):
-        if trace_mxu.use_mxu(mxu):
+        if trace_mxu.use_mxu(mxu) == matrix:
             calls.append((o.clone(), d.clone(), tp, mode, mask.clone()))
         return real(o, d, tp, mode, mask, mxu=mxu)
 
@@ -1699,6 +1762,13 @@ def ablation_phase(kernels, launches):
         lambda: trace_mxu.trace_dense_mxu(o, d, tp, 0, all_ones),
         lambda: k8_twin, (o, d, tp, all_ones), 0, tp.shape[1],
         lambda fn: smoke_times(fn, ms=traces["mxu_hi"]["ms"]))
+    k3_twin, _ = twin_all(lambda a, b: trace_pallas.trace_dense_twin(
+        a, b, tp, 0, ones), o, d)
+    exact("K9 current (K3) vs twin", k3, k3_twin)
+    kernels["K3"]["cases"]["g"] = dense_case(
+        lambda: trace_pallas.trace_dense(o, d, tp, 0, all_ones, mxu=False),
+        lambda: k3_twin, (o, d, tp, all_ones), 0, tp.shape[1],
+        lambda fn: smoke_times(fn, ms=traces["current"]["ms"]), fp32=True)
     for label, passes in ta.MXU_BF16_PASSES.items():
         res = traces[label]
         ker = res["out"]
@@ -1726,6 +1796,14 @@ def ablation_phase(kernels, launches):
                                                     True, sweep_all),
         lambda: k4m_twin, (so, sd, stris, sweep_all), 0, stris.shape[1],
         lambda fn: smoke_times(fn, ms=sweeps["sweep_mxu"]["ms"]))
+    k4_twin, _ = twin_all(lambda a, b: trace_pallas.sweep_shells_dense_twin(
+        a, b, stris, scols, True, sones), so, sd)
+    exact("K9 sweep (K4) vs twin, every row", k4, k4_twin)
+    kernels["K4"]["cases"]["i"] = dense_case(
+        lambda: trace_pallas.sweep_shells_dense(so, sd, stris, scols, True,
+                                                sweep_all, mxu=False),
+        lambda: k4_twin, (so, sd, stris, sweep_all), 0, stris.shape[1],
+        lambda fn: smoke_times(fn, ms=sweeps["sweep"]["ms"]), fp32=True)
     for row in range(5):
         # Against K4, the dense trace's bounds: on these camera rays from
         # distance 3 the matrix form's t error is absolute (t·det = o·n -

@@ -3,10 +3,11 @@
 // tile math of scripts/ablate_trace_kernel.py::_mt_tile patched in,
 // run_sweep_family :182-263): the dense dual-shell sweep's block loop
 // (csrc/sweep_dense.cuh) with the variants nodiv, recip, recipx and bf16 of
-// csrc/mt_variants.cuh. The production math stays in sweep_dense.cu.
+// csrc/mt_variants.cuh. K4 itself is sweep_dense.cu.
 //
-// Bound: the variant's operations, ~45 per (ray, triangle) pair of the live
-// blocks, at the FP32 instruction rate (bf16: two per lane per clock).
+// Bound (ops/bounds.py): the variant's operations per (ray, triangle) pair
+// of the live blocks (46 for Möller–Trumbore, nodiv 47) at the FP32
+// instruction rate (bf16: two per lane per clock).
 #include "sweep_dense.cuh"
 
 // Variant codes of ops/trace_ablation.py::VARIANT_CODES.

@@ -2,7 +2,7 @@
 // scripts/ablate_trace_kernel.py::trace_variant, body make_kernel :110,
 // tile math _mt_tile :47 and _probe_tile :100).
 //
-// K3's skeleton (csrc/trace_dense.cu) as a template over the tile math
+// K3's first skeleton as a template over the tile math
 // (csrc/mt_variants.cuh), the rays per block and the triangles per staged
 // tile: one thread per ray, tiles staged in shared memory (9 x TILE floats,
 // 36,864 B at 1024), (best_t, best_tri) in registers, a strict `<` over
@@ -12,9 +12,10 @@
 // combination the reference's dispatch names (:397-418); the C entry
 // refuses any other.
 //
-// Bound: the variant's operations per (ray, triangle) pair (45, the probe
-// 48) at the card's rate of unfused FP32 instructions (-fmad=false: one
-// instruction per operation), bf16 at two per lane per clock.
+// Bound (ops/bounds.py): the variant's operations per (ray, triangle) pair
+// (46, nodiv 47, the probe 50) at the card's rate of unfused FP32
+// instructions (-fmad=false: one instruction per operation), bf16 at two
+// per lane per clock.
 #include "mt_variants.cuh"
 
 template <class M, int BLOCK, int TILE>

@@ -83,6 +83,25 @@ __device__ __forceinline__ void nr_sweep_inner(float t, float det,
   i1b = fminf(i1b, det < 0.0f ? t : NR_MISS);
 }
 
+// Fold the strict two-min pair (b1, b2) into (m1, m2): m2 stays the min of
+// the values strictly above m1 (`_strict_pair_update` over a multiset).
+__device__ __forceinline__ void nr_pair_merge(float& m1, float& m2, float b1,
+                                              float b2) {
+  const float n1 = fminf(m1, b1);
+  m2 = fminf(m1 > n1 ? m1 : m2, b1 > n1 ? b1 : b2);
+  m1 = n1;
+}
+
+// Closest hit: keep (t, id) unless the candidate is nearer, or as near
+// with a smaller id (the brute-force oracle's rule).
+__device__ __forceinline__ void nr_hit_update(float& bt, int& bi, float t,
+                                              int id) {
+  if (t < bt || (t == bt && id < bi)) {
+    bt = t;
+    bi = id;
+  }
+}
+
 // Stage columns [col0, col0 + width) of a [9, total] row-major triangle
 // array into tile[9][width]; all threads of the block take part.
 template <int WIDTH>

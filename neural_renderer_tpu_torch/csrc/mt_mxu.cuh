@@ -34,7 +34,7 @@
 //   t > MIN_T. Facing is -det: FORWARD == det > 0.
 #pragma once
 
-#include "mt.cuh"
+#include "mt_dense.cuh"
 
 #define MXU_MT 4                // 8-ray m-tiles per warp (clustered kernels)
 #define MXU_COMBOS 6            // (quantity, k4 group) products per tile
@@ -150,25 +150,6 @@ __device__ __forceinline__ float nr_mxu_pair(double det64, double u64,
                          __double2float_rn(v64), __double2float_rn(t64));
 }
 
-// Fold the strict two-min pair (b1, b2) into (m1, m2): m2 stays the min of
-// the values strictly above m1 (`_strict_pair_update` over a multiset).
-__device__ __forceinline__ void nr_pair_merge(float& m1, float& m2, float b1,
-                                              float b2) {
-  const float n1 = fminf(m1, b1);
-  m2 = fminf(m1 > n1 ? m1 : m2, b1 > n1 ? b1 : b2);
-  m1 = n1;
-}
-
-// Closest hit: keep (t, id) unless the candidate is nearer, or as near
-// with a smaller id (the brute-force oracle's rule).
-__device__ __forceinline__ void nr_hit_update(float& bt, int& bi, float t,
-                                              int id) {
-  if (t < bt || (t == bt && id < bi)) {
-    bt = t;
-    bi = id;
-  }
-}
-
 // Reduce a per-lane closest hit over the lane's quad (the ray's 4 lanes).
 __device__ __forceinline__ void nr_quad_hit(float& bt, int& bi) {
 #pragma unroll
@@ -248,15 +229,10 @@ __device__ __forceinline__ void nr_sweep_quad(MxuSweepN<N>& s,
 // the H100) cost more than its products, and a ray meets the parallelogram
 // of only a few of the mesh's triangles.
 //
-// Slices. A launch whose rays fill fewer than the card's CTA slots splits
-// the triangles into `slices` ranges of whole chunks (blockIdx.y); each
-// slice writes its rows to a partial buffer and a fold kernel merges them
-// per ray: the closest hit by (t, smallest id), the sweep's rows by the
-// strict-pair rule and mins (selections: the grouping does not change
-// them). nr_dx_shape picks the count: enough slices that the launch
-// reaches DX_CTAS_PER_SM CTAs on every SM, at most one per chunk. Each
-// dense library exports it as `<name>_shape`, and its wrapper sizes the
-// scratch from it (ops/trace_mxu.py::dense_scratch).
+// Slices: csrc/mt_dense.cuh's, DX_CTAS_PER_SM CTAs per SM at least, at
+// most one slice per chunk (nr_dx_shape, exported by each library as
+// `<name>_shape`; ops/trace_pallas.py::dense_scratch sizes the scratch
+// from it).
 //
 // One 16-ray m-tile a warp, four warps, the branch-free prefilter without
 // t's sign and the per-slot vote were the fastest of the variants measured
@@ -266,13 +242,12 @@ __device__ __forceinline__ void nr_sweep_quad(MxuSweepN<N>& s,
 #define DX_WARPS 4               // warps per CTA, one 16-ray m-tile each
 #define DX_THREADS (32 * DX_WARPS)
 #define DX_RAYS (16 * DX_WARPS)
-#define DX_SKIP_RAYS 512         // rays per skip flag
 #define DX_CHUNK 8               // n-tiles per staged chunk
 #define DX_CHUNK_TRIS (8 * DX_CHUNK)
 #define DX_FRAG (MXU_COMBOS * 32)  // doubles of one n-tile's B fragments
 #define DX_SMEM (2 * DX_CHUNK * DX_FRAG * 8)
 #define DX_CTAS_PER_SM 8         // a one-slice launch's CTAs per SM, at least
-static_assert(DX_SKIP_RAYS % DX_RAYS == 0, "a CTA lies in one skip block");
+static_assert(NR_SKIP_RAYS % DX_RAYS == 0, "a CTA lies in one skip block");
 static_assert(DX_SMEM <= 48 * 1024,
               "the chunk buffers need an opt-in attribute");
 
@@ -280,17 +255,9 @@ static_assert(DX_SMEM <= 48 * 1024,
 // device: the triangle slices and the doubles of the feature scratch.
 static inline int nr_dx_shape(int npad, int ttot, int* slices,
                               long long* feat_doubles) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int ctas = npad / DX_RAYS > 1 ? npad / DX_RAYS : 1;
-  const int want = (sms * DX_CTAS_PER_SM + ctas - 1) / ctas;
-  const int most = ttot / DX_CHUNK_TRIS > 1 ? ttot / DX_CHUNK_TRIS : 1;
-  *slices = want < most ? want : most;
   *feat_doubles = (long long)(ttot > 8 ? ttot : 8) / 8 * DX_FRAG;
-  return 0;
+  return nr_dense_slices(npad, ttot, DX_RAYS, DX_CHUNK_TRIS, DX_CTAS_PER_SM,
+                         slices);
 }
 
 // Every triangle's features, thread q the triangle q of [9, ttot].
@@ -473,9 +440,4 @@ __device__ __forceinline__ void nr_dx_walk(const double* __restrict__ feat,
 // The lane's row-g ray in the CTA starting at ray0.
 __device__ __forceinline__ long long nr_dx_ray(long long ray0) {
   return ray0 + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
-}
-
-// Slice s's first chunk of nchunks (slice s takes [chunk(s), chunk(s + 1))).
-__device__ __forceinline__ int nr_dx_chunk(int s, int nchunks, int slices) {
-  return (int)((long long)s * nchunks / slices);
 }

@@ -1,8 +1,11 @@
-// The dense dual-shell sweep's block loop (csrc/sweep_dense.cu, TPU kernel
-// neural_renderer_tpu/ops/trace_pallas.py::_sweep_kernel), templated over
-// the tile math (csrc/mt_variants.cuh): sweep_dense.cu instantiates the
-// production math, ablate_sweep.cu the trace-kernel ablation's variants
-// (scripts/ablate_trace_kernel.py::run_sweep_family).
+// The dense dual-shell sweep's first block loop for K4 (TPU
+// kernel neural_renderer_tpu/ops/trace_pallas.py::_sweep_kernel), templated
+// over the tile math (csrc/mt_variants.cuh). It serves the trace-kernel
+// ablation only: ablate_sweep.cu instantiates the ablation's variants
+// (scripts/ablate_trace_kernel.py::run_sweep_family), which keep this
+// block shape so that their times stay comparable with each other and
+// with PERF.md's K9 rows. K4 itself (sweep_dense.cu) walks
+// csrc/mt_dense.cuh.
 //
 // tris = [outer | inner], each shell padded to whole 256-triangle tiles with
 // degenerate triangles that the det cull rejects. One block per 512 rays, one

@@ -33,7 +33,7 @@ sweep_dense_mxu_kernel(const float* __restrict__ o,
   __shared__ __align__(16) double buf[2 * DX_CHUNK * DX_FRAG];
   const long long ray0 = (long long)blockIdx.x * DX_RAYS;
   const int s = blockIdx.y;
-  if (block_mask[ray0 / DX_SKIP_RAYS] == 0) {  // uniform across the CTA
+  if (block_mask[ray0 / NR_SKIP_RAYS] == 0) {  // uniform across the CTA
     if (slices == 1) {
       for (int i = threadIdx.x; i < kRows * DX_RAYS; i += DX_THREADS)
         out[(long long)(i / DX_RAYS) * npad + ray0 + i % DX_RAYS] = NR_MISS;
@@ -45,8 +45,9 @@ sweep_dense_mxu_kernel(const float* __restrict__ o,
   MxuSweepN<2> acc;  // rows g and g + 8
   nr_sweep_init(acc);
   nr_dx_walk<0>(
-      feat, nr_dx_chunk(s, nchunks, slices), nr_dx_chunk(s + 1, nchunks, slices),
-      a, buf, [&](int e, int id, float t, float det) {
+      feat, nr_slice_chunk(s, nchunks, slices),
+      nr_slice_chunk(s + 1, nchunks, slices), a, buf,
+      [&](int e, int id, float t, float det) {
         const int h = e >> 1;
         if (id < outer_cols) {  // uniform across the chunk
           nr_sweep_outer(kFwd2, t, det, acc.m1f[h], acc.m2f[h], acc.m1b[h]);
@@ -69,37 +70,6 @@ sweep_dense_mxu_kernel(const float* __restrict__ o,
   }
 }
 
-// The slices' partial rows [slices][rows][npad] -> out [rows, npad].
-template <bool kFwd2>
-__global__ void __launch_bounds__(256)
-sweep_dense_mxu_fold(const float* __restrict__ part, int npad, int slices,
-                     const int* __restrict__ block_mask,
-                     float* __restrict__ out) {
-  constexpr int kRows = kFwd2 ? 5 : 4;
-  const long long r = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (r >= npad) return;
-  float m1f = NR_MISS, m2f = NR_MISS, m1b = NR_MISS, i1f = NR_MISS,
-        i1b = NR_MISS;
-  if (block_mask[r / DX_SKIP_RAYS] != 0) {
-    for (int s = 0; s < slices; ++s) {
-      const float* p = part + (long long)s * kRows * npad + r;
-      if (kFwd2) {
-        nr_pair_merge(m1f, m2f, p[0], p[4LL * npad]);
-      } else {
-        m1f = fminf(m1f, p[0]);
-      }
-      m1b = fminf(m1b, p[npad]);
-      i1f = fminf(i1f, p[2LL * npad]);
-      i1b = fminf(i1b, p[3LL * npad]);
-    }
-  }
-  out[r] = m1f;
-  out[npad + r] = m1b;
-  out[2LL * npad + r] = i1f;
-  out[3LL * npad + r] = i1b;
-  if (kFwd2) out[4LL * npad + r] = m2f;
-}
-
 template <bool kFwd2>
 void sweep_dense_mxu_launch(const float* o, const float* d, int npad,
                             const double* feat, int ttot, int outer_cols,
@@ -109,10 +79,8 @@ void sweep_dense_mxu_launch(const float* o, const float* d, int npad,
   sweep_dense_mxu_kernel<kFwd2><<<grid, DX_THREADS, 0, stream>>>(
       o, d, npad, feat, ttot / DX_CHUNK_TRIS, outer_cols, block_mask, slices,
       slices == 1 ? out : part);
-  if (slices > 1) {
-    sweep_dense_mxu_fold<kFwd2><<<(npad + 255) / 256, 256, 0, stream>>>(
-        part, npad, slices, block_mask, out);
-  }
+  nr_dense_fold_launch<kFwd2 ? 5 : 4>(part, npad, slices, block_mask, out,
+                                      stream);
 }
 
 // The launch shape the wrapper allocates for (nr_dx_shape).

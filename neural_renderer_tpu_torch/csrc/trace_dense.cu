@@ -1,67 +1,104 @@
 // Dense closest-hit trace (replaces the TPU kernel
 // neural_renderer_tpu/ops/trace_pallas.py::_kernel).
 //
-// One thread per ray in 512-ray blocks; a block whose skip flag is 0 (no ray
-// hits the padded root AABB, or no ray is active) writes misses without
-// touching a triangle. Live blocks stage 256-triangle tiles in shared memory
-// and keep (best_t, best_tri) in registers. A strict `<` over increasing
-// triangle ids keeps the smallest id among equal t, as the TPU kernel's
-// min-over-lanes does. TraceMode: 0 ANY, 1 FORWARD_ONLY (det > 0),
-// 2 BACKWARD_ONLY (det < 0).
+// Per ray the closest hit (t, the smallest id among equal t) of [3, Npad]
+// rays against [9, T] triangles, TraceMode 0 ANY, 1 FORWARD_ONLY (det > 0),
+// 2 BACKWARD_ONLY (det < 0); rays of a 512-ray block whose skip flag is 0
+// report a miss with id 0 without touching a triangle.
 //
-// Bound: FP32 operations, ~45 per (ray, triangle) pair of the live blocks.
-#include "mt.cuh"
+// The FP32 walk of csrc/mt_dense.cuh: DF_RAYS-ray CTAs x triangle slices,
+// each thread keeping the best (t, id) of its DF_R rays (a strict < over
+// increasing ids keeps the smallest id among equal t, as the TPU kernel's
+// min-over-lanes does), the prefilter skipping Möller–Trumbore's divide
+// and second half on pairs that certainly miss; with more than one slice,
+// nr_dense_fold merges the slices' partial rows per ray by (t, id).
+//
+// Bound (ops/bounds.py): FP32 operations, 46 per (ray, triangle) pair of
+// the live blocks without a prefilter; with it, the operations up to the
+// prefilter's test of u on every pair, its test of v on the pairs the
+// first test leaves, and the rest of Möller–Trumbore on the pairs the
+// second leaves (ops/trace_pallas.py::prefilter_pairs).
+#include "mt_dense.cuh"
 
-#define TRACE_BLOCK_RAYS 512
-#define TRACE_TILE 256
-
-__global__ void __launch_bounds__(TRACE_BLOCK_RAYS)
+template <int kMode>
+__global__ void DF_LAUNCH_BOUNDS
 trace_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    int npad, const float* __restrict__ tris, int ttot,
-                   const int* __restrict__ block_mask, int mode,
+                   const int* __restrict__ block_mask, int slices,
                    float* __restrict__ out) {
-  __shared__ float tile[9][TRACE_TILE];
-  const int b = blockIdx.x;
-  const long long r = (long long)b * TRACE_BLOCK_RAYS + threadIdx.x;
-  if (block_mask[b] == 0) {  // uniform across the block
-    out[r] = NR_MISS;
-    out[npad + r] = __int_as_float(0);
-    return;
-  }
-  const float ox = o[r], oy = o[npad + r], oz = o[2LL * npad + r];
-  const float dx = d[r], dy = d[npad + r], dz = d[2LL * npad + r];
-  float best_t = NR_MISS;
-  int best_tri = 0;
-  for (int base = 0; base < ttot; base += TRACE_TILE) {
-    __syncthreads();
-    nr_stage_tile<TRACE_TILE>(tile, tris, ttot, base);
-    __syncthreads();
-#pragma unroll 4
-    for (int q = 0; q < TRACE_TILE; ++q) {
-      float det;
-      float t = nr_mt_t(ox, oy, oz, dx, dy, dz, tile[0][q], tile[1][q],
-                        tile[2][q], tile[3][q], tile[4][q], tile[5][q],
-                        tile[6][q], tile[7][q], tile[8][q], &det);
-      if (mode == 1 && !(det > 0.0f)) t = NR_MISS;
-      if (mode == 2 && !(det < 0.0f)) t = NR_MISS;
-      if (t < best_t) {
-        best_t = t;
-        best_tri = base + q;
+  __shared__ __align__(16) float buf[2 * DF_CHUNK * DF_TRI_STRIDE];
+  const long long ray0 = (long long)blockIdx.x * DF_RAYS;
+  const int s = blockIdx.y;
+  if (block_mask[ray0 / NR_SKIP_RAYS] == 0) {  // uniform across the CTA
+    if (slices == 1) {
+#pragma unroll
+      for (int i = 0; i < DF_R; ++i) {
+        out[df_ray(ray0, i)] = NR_MISS;
+        out[npad + df_ray(ray0, i)] = __int_as_float(0);
       }
     }
+    return;  // with slices the fold writes the miss
   }
-  out[r] = best_t;
-  out[npad + r] = __int_as_float(best_tri);
+  DfRays r;
+  df_load(o, d, npad, ray0, r);
+  float bt[DF_R];
+  int bi[DF_R];
+#pragma unroll
+  for (int i = 0; i < DF_R; ++i) {
+    bt[i] = NR_MISS;
+    bi[i] = 0;
+  }
+  const int nchunks = ttot / DF_CHUNK;
+  df_walk<kMode>(tris, ttot, nr_slice_chunk(s, nchunks, slices),
+                 nr_slice_chunk(s + 1, nchunks, slices), r, buf,
+                 [&](int i, int id, float t, float det) {
+                   if (kMode == 1 && !(det > 0.0f)) t = NR_MISS;
+                   if (kMode == 2 && !(det < 0.0f)) t = NR_MISS;
+                   if (t < bt[i]) {
+                     bt[i] = t;
+                     bi[i] = id;
+                   }
+                 });
+  float* dst = out + (long long)s * 2 * npad;  // a slice's partial rows
+#pragma unroll
+  for (int i = 0; i < DF_R; ++i) {
+    dst[df_ray(ray0, i)] = bt[i];
+    dst[npad + df_ray(ray0, i)] = __int_as_float(bi[i]);
+  }
 }
 
+// The launch shape the wrapper allocates for (nr_dense_slices); the walk
+// needs no scratch beyond the partial rows.
+extern "C" int trace_dense_shape(int npad, int ttot, int* slices,
+                                 long long* scratch_doubles) {
+  *scratch_doubles = 0;
+  return nr_dense_slices(npad, ttot, DF_RAYS, DF_CHUNK, DF_CTAS_PER_SM,
+                         slices);
+}
+
+// part: [slices][2][npad] f32 scratch (unused with one slice). T must be a
+// multiple of DF_CHUNK.
 extern "C" int trace_dense(const float* o, const float* d, int npad,
                            const float* tris, int ttot, const int* block_mask,
-                           int mode, float* out, cudaStream_t stream) {
-  const int nb = npad / TRACE_BLOCK_RAYS;
-  if (nb > 0) {
-    trace_dense_kernel<<<nb, TRACE_BLOCK_RAYS, 0, stream>>>(
-        o, d, npad, tris, ttot, block_mask, mode, out);
+                           int mode, int slices, float* part, float* out,
+                           cudaStream_t stream) {
+  if (ttot % DF_CHUNK != 0 || slices < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ctas = npad / DF_RAYS;
+  if (ctas == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(ctas, slices);
+  float* dst = slices == 1 ? out : part;
+  if (mode == 1) {
+    trace_dense_kernel<1><<<grid, DF_THREADS, 0, stream>>>(
+        o, d, npad, tris, ttot, block_mask, slices, dst);
+  } else if (mode == 2) {
+    trace_dense_kernel<2><<<grid, DF_THREADS, 0, stream>>>(
+        o, d, npad, tris, ttot, block_mask, slices, dst);
+  } else {
+    trace_dense_kernel<0><<<grid, DF_THREADS, 0, stream>>>(
+        o, d, npad, tris, ttot, block_mask, slices, dst);
   }
+  nr_dense_fold_launch<2>(part, npad, slices, block_mask, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,7 +31,7 @@ trace_dense_mxu_kernel(const float* __restrict__ o,
   __shared__ __align__(16) double buf[2 * DX_CHUNK * DX_FRAG];
   const long long ray0 = (long long)blockIdx.x * DX_RAYS;
   const int s = blockIdx.y;
-  if (block_mask[ray0 / DX_SKIP_RAYS] == 0) {  // uniform across the CTA
+  if (block_mask[ray0 / NR_SKIP_RAYS] == 0) {  // uniform across the CTA
     if (slices == 1) {
       for (int i = threadIdx.x; i < DX_RAYS; i += DX_THREADS) {
         out[ray0 + i] = NR_MISS;
@@ -45,8 +45,9 @@ trace_dense_mxu_kernel(const float* __restrict__ o,
   float bt[2] = {NR_MISS, NR_MISS};  // rows g and g + 8
   int bi[2] = {0, 0};
   nr_dx_walk<kMode>(
-      feat, nr_dx_chunk(s, nchunks, slices), nr_dx_chunk(s + 1, nchunks, slices),
-      a, buf, [&](int e, int id, float t, float det) {
+      feat, nr_slice_chunk(s, nchunks, slices),
+      nr_slice_chunk(s + 1, nchunks, slices), a, buf,
+      [&](int e, int id, float t, float det) {
         if (kMode == 1 && !(det > 0.0f)) t = NR_MISS;
         if (kMode == 2 && !(det < 0.0f)) t = NR_MISS;
         if (t < bt[e >> 1]) {
@@ -64,24 +65,6 @@ trace_dense_mxu_kernel(const float* __restrict__ o,
       dst[npad + r] = __int_as_float(bi[h]);
     }
   }
-}
-
-// The slices' partial rows [slices][2][npad] -> out [2, npad].
-__global__ void __launch_bounds__(256)
-trace_dense_mxu_fold(const float* __restrict__ part, int npad, int slices,
-                     const int* __restrict__ block_mask,
-                     float* __restrict__ out) {
-  const long long r = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (r >= npad) return;
-  float bt = NR_MISS;
-  int bi = 0;
-  if (block_mask[r / DX_SKIP_RAYS] != 0) {
-    for (int s = 0; s < slices; ++s)
-      nr_hit_update(bt, bi, part[2LL * s * npad + r],
-                    __float_as_int(part[(2LL * s + 1) * npad + r]));
-  }
-  out[r] = bt;
-  out[npad + r] = __int_as_float(bi);
 }
 
 // The launch shape the wrapper allocates for (nr_dx_shape).
@@ -118,10 +101,7 @@ extern "C" int trace_dense_mxu(const float* o, const float* d, int npad,
     trace_dense_mxu_kernel<0><<<grid, DX_THREADS, 0, stream>>>(
         o, d, npad, feat, nchunks, block_mask, slices, dst);
   }
-  if (slices > 1) {
-    trace_dense_mxu_fold<<<(npad + 255) / 256, 256, 0, stream>>>(
-        part, npad, slices, block_mask, out);
-  }
+  nr_dense_fold_launch<2>(part, npad, slices, block_mask, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,11 +25,12 @@ m16n8k8), the epilogue in FP32 in JAX's order (`csrc/mt_mxu.cuh`), only
 on the pair slots a prefilter cannot rule out (`certain_miss` is its rule
 on the CPU, `epilogue_pairs` counts what it leaves); the triangles'
 features are built once per launch and short launches split the triangles
-into slices (the library sizes the launch: `dense_scratch`). The TPU
-kernel's dots run at HIGHEST (bf16x6, about f32). The card's 3xTF32 split of f32 operands
-keeps 22 of their 24 bits: held against float64 Möller–Trumbore on the
-parity tests' spheres (`scripts/emulate_mxu_split.py`), it leaves t outside
-1e-6 on up to 4 of ~3,100 hit rays per case, where FP64 products of the
+into slices (the library sizes the launch: `trace_pallas.dense_scratch`).
+The TPU kernel's dots run at HIGHEST (bf16x6, about f32). The card's
+3xTF32 split of f32 operands keeps 22 of their 24 bits: held against
+float64 Möller–Trumbore on the parity tests' spheres
+(`scripts/emulate_mxu_split.py`), it leaves t outside 1e-6 on up to 4 of
+~3,100 hit rays per case, where FP64 products of the
 f32 features (exact, their sums rounded once to f32) leave none.
 The twin is `trace_pallas.trace_dense_twin(..., mxu=True)`, its pairs
 `mxu_tile_t`, with the same FP64 products (`pair_eval_raw`). Bound on the
@@ -190,24 +191,6 @@ def epilogue_pairs(origins, dirs, tris_packed, block_mask, mode: int = 0,
                for c in range(0, tris_packed.shape[1], tile))
 
 
-def dense_scratch(name: str, origins, ttot: int, rows: int):
-    """(library, slices, feature scratch, partial rows) of a launch of the
-    dense library `name` (trace_dense_mxu, sweep_dense_mxu), as the
-    library's own `<name>_shape` sizes it (csrc/mt_mxu.cuh::nr_dx_shape)."""
-    lib = cuda_build.load(name)
-    npad = origins.shape[1]
-    slices, feat_doubles = ctypes.c_int(), ctypes.c_longlong()
-    rc = getattr(lib, name + "_shape")(
-        ctypes.c_int(npad), ctypes.c_int(ttot), ctypes.byref(slices),
-        ctypes.byref(feat_doubles))
-    cuda_build.check(lib, rc, name + "_shape")
-    feat = torch.empty(feat_doubles.value, dtype=torch.float64,
-                       device=origins.device)
-    part = torch.empty((slices.value if slices.value > 1 else 0, rows, npad),
-                       dtype=torch.float32, device=origins.device)
-    return lib, slices.value, feat, part
-
-
 def trace_dense_mxu(origins, dirs, tris_packed, mode: int, block_mask):
     """The dense closest hit in the matrix formulation, with
     `trace_pallas.trace_dense`'s contract. CPU tensors run the twin; CUDA
@@ -221,8 +204,8 @@ def trace_dense_mxu(origins, dirs, tris_packed, mode: int, block_mask):
         ("tris_packed", tris_packed, torch.float32),
         ("block_mask", block_mask, torch.int32)))
     n, ttot = origins.shape[1], tris_packed.shape[1]
-    lib, slices, feat, part = dense_scratch("trace_dense_mxu", origins, ttot,
-                                            2)
+    lib, slices, feat, part = trace_pallas.dense_scratch(
+        "trace_dense_mxu", origins, ttot, 2)
     out = torch.empty((2, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
     rc = lib.trace_dense_mxu(

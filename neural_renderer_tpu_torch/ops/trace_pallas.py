@@ -7,23 +7,24 @@ Port of `neural_renderer_tpu/ops/trace_pallas.py`: `_kernel` /
 helpers `_mt_tile_t`, `_strict_pair_update`, `_lane_pair_reduce` that the
 clustered kernels (`ops/trace_cluster.py`) share.
 
-Kernel `csrc/trace_dense.cu` replaces `trace_pallas.py::_kernel`. One CUDA
-thread per ray, 512-ray blocks (the TPU kernel's block, so the per-block
-skip flag means the same thing), triangles staged through shared memory in
-256-wide tiles, (best_t, best_tri) in registers. Bound on the card: FP32
-operations, 46 per (ray, triangle) pair over the live blocks (counted in
-`ops/bounds.py`); the design
-keeps every operand in registers or broadcast shared-memory reads so the
-inner loop is pure FP32 arithmetic. Built with -fmad=false, it rounds op by
-op like `_mt_tile_t` below and is held bit-exact to `trace_dense_twin`.
-
-Kernel `csrc/sweep_dense.cu` replaces `trace_pallas.py::_sweep_kernel`: the
-five rows of the clustered sweep without worklists, for shell pairs too
-small for clusters to pay. Same block shape and skip flag; outer tiles fold
-the strict forward pair and the backward min, inner tiles the two mins, all
-in registers. Bound on the card: FP32 operations, 46 per pair over the
-live blocks x the shells' real triangles (`ops/bounds.py`). Bit-exact to
-`sweep_shells_dense_twin`.
+Kernel `csrc/trace_dense.cu` replaces `trace_pallas.py::_kernel`, kernel
+`csrc/sweep_dense.cu` `trace_pallas.py::_sweep_kernel` (the five rows of
+the clustered sweep without worklists, for shell pairs too small for
+clusters to pay). Both walk `csrc/mt_dense.cuh`: CTAs of 512 rays, two a
+thread (the TPU kernel's block, so its skip flag means the same thing);
+triangles staged in a double-buffered triangle-major tile;
+a prefilter that tests det and u·det, then v·det, of each pair without a
+branch and runs the divide and the rest of Möller–Trumbore only where
+some pair of the warp may hit (`dense_rule` is its rule,
+`prefilter_pairs` counts what it leaves); and, for launches too short to
+fill the card, triangle slices folded per ray (the library sizes the
+launch: `dense_scratch`). Built with -fmad=false, they round op by op like
+`_mt_pairs` below and are held bit-exact to `trace_dense_twin` and
+`sweep_shells_dense_twin`. Bound on the card (`ops/bounds.py`): FP32
+operations, 46 per (ray, triangle) pair of the live blocks (x the shells'
+real triangles), or, counting what the prefilter leaves, 24 per pair, 14
+more on the pairs its u test leaves and 10 on those both tests leave
+(`bounds.dense_seconds`).
 
 With `NR_TRACE_MXU=1` (or `mxu=True`) both wrappers take the matrix
 formulation of `ops/trace_mxu.py`: `trace_dense` the kernel
@@ -32,11 +33,11 @@ formulation of `ops/trace_mxu.py`: `trace_dense` the kernel
 the `mxu=True` body of `_sweep_block_body` (`trace_pallas.py:200-230`):
 the same rows and skip flag, the pair math as FP64 tensor-core products
 with an FP32 epilogue behind a prefilter, in 64-ray CTAs and triangle
-slices (csrc/mt_mxu.cuh, "the dense kernels"; `trace_mxu.dense_scratch`).
-Bound on the card: the FP64 tensor products, the function's 38 flops per
-pair of the live blocks (48 as issued) against 67 TFLOP/s, over the FP32
-operations and conversions (`ops/bounds.py`); the twins are
-`trace_dense_twin` and `sweep_shells_dense_twin` with `mxu=True`.
+slices (csrc/mt_mxu.cuh, "the dense kernels"). Bound on the card: the
+FP64 tensor products, the function's 38 flops per pair of the live blocks
+(48 as issued) against 67 TFLOP/s, over the FP32 operations and
+conversions (`ops/bounds.py`); the twins are `trace_dense_twin` and
+`sweep_shells_dense_twin` with `mxu=True`.
 """
 
 from __future__ import annotations
@@ -53,15 +54,16 @@ SWEEP_TRI_TILE = 256  # the dense sweep pads each shell to whole tiles
 MIN_T = 1e-6
 TRI_EPSILON = 1e-8
 MISS = 1e30
+# The FP32 dense kernels' prefilter (csrc/mt_dense.cuh): a numerator w
+# (u·det or v·det, times det's sign) below |det| DENSE_LO or at least
+# |det| DENSE_HI rejects the pair.
+DENSE_LO = -2.0 ** -20
+DENSE_HI = 1.0 + 2.0 ** -20
 
 
-def _mt_pairs(o, d, tb):
-    """Möller–Trumbore of rays o, d [3, ...] against triangles tb [9, ...],
-    the trailing shapes broadcasting against each other: returns (t, det)
-    with t = 1e30 where the pair is rejected (det cull, barycentric bounds,
-    epsilon). Facing is carried by det's sign: FORWARD (facing < 0) ==
-    det > 0. The CUDA kernels evaluate the same expressions in the same
-    order (csrc/mt.cuh)."""
+def _mt_det_u(o, d, tb):
+    """The first half of Möller–Trumbore (`_mt_pairs`), rays o, d [3, ...]
+    against triangles tb [9, ...]: (det, u·det, o - v0, d x e2)."""
     ox, oy, oz = o[0], o[1], o[2]
     dx, dy, dz = d[0], d[1], d[2]
     v0x, v0y, v0z = tb[0], tb[1], tb[2]
@@ -72,22 +74,41 @@ def _mt_pairs(o, d, tb):
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    ok = torch.abs(det) >= TRI_EPSILON
-    inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
-
     tx = ox - v0x
     ty = oy - v0y
     tz = oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv_det
-    ok &= (u >= 0.0) & (u <= 1.0)
+    u_num = tx * px + ty * py + tz * pz
+    return det, u_num, (tx, ty, tz), (px, py, pz)
 
+
+def _mt_v_num(d, tb, tvec):
+    """v·det of `_mt_pairs` from o - v0 (`_mt_det_u`): (v·det, q)."""
+    tx, ty, tz = tvec
+    e1x, e1y, e1z = tb[3], tb[4], tb[5]
     qx = ty * e1z - tz * e1y
     qy = tz * e1x - tx * e1z
     qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    return d[0] * qx + d[1] * qy + d[2] * qz, (qx, qy, qz)
+
+
+def _mt_pairs(o, d, tb):
+    """Möller–Trumbore of rays o, d [3, ...] against triangles tb [9, ...],
+    the trailing shapes broadcasting against each other: returns (t, det)
+    with t = 1e30 where the pair is rejected (det cull, barycentric bounds,
+    epsilon). Facing is carried by det's sign: FORWARD (facing < 0) ==
+    det > 0. The CUDA kernels evaluate the same expressions in the same
+    order (csrc/mt.cuh)."""
+    det, u_num, tvec, _ = _mt_det_u(o, d, tb)
+    ok = torch.abs(det) >= TRI_EPSILON
+    inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
+    u = u_num * inv_det
+    ok &= (u >= 0.0) & (u <= 1.0)
+
+    v_num, (qx, qy, qz) = _mt_v_num(d, tb, tvec)
+    v = v_num * inv_det
     ok &= (v >= 0.0) & (u + v <= 1.0)
 
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    t = (tb[6] * qx + tb[7] * qy + tb[8] * qz) * inv_det
     ok &= (t > TRI_EPSILON) & (t > MIN_T)
     return torch.where(ok, t, torch.full_like(t, MISS)), det
 
@@ -122,6 +143,78 @@ def _mode_cull(t, det, mode: int):
     if mode == 2:    # BACKWARD_ONLY
         return torch.where(det < 0.0, t, torch.full_like(t, MISS))
     return t
+
+
+def _dense_out(num, det, lo, hi):
+    """The prefilter's test of one numerator (u·det or v·det): True where
+    num sgn(det) (det's sign bit flips num's) is below lo = |det| DENSE_LO
+    or at least hi = |det| DENSE_HI."""
+    w = torch.where(torch.signbit(det), -num, num)
+    return (w < lo) | (w >= hi)
+
+
+def dense_rule(det, u_num, v_num, mode: int = 0):
+    """The FP32 dense kernels' prefilter rule on the CPU
+    (csrc/mt_dense.cuh::df_keep, df_keep_v, where the argument is written
+    out) on a pair's f32 det, u·det and v·det: (keep_u, keep_v), False
+    where the first test (det and u·det, with the facing cull of mode 1
+    FORWARD_ONLY / 2 BACKWARD_ONLY) or both tests (then v·det) leave a
+    pair that Möller–Trumbore (`_mt_pairs`, nr_mt_t) certainly rejects."""
+    a = det.abs()
+    lo, hi = a * DENSE_LO, a * DENSE_HI
+    keep_u = ~_dense_out(u_num, det, lo, hi)
+    if mode == 1:
+        keep_u &= det > 0.0
+    elif mode == 2:
+        keep_u &= det < 0.0
+    return keep_u, keep_u & ~_dense_out(v_num, det, lo, hi)
+
+
+def dense_prefilter(o, d, tb, mode: int = 0):
+    """`dense_rule` on `_mt_pairs`'s own det, u·det and v·det of rays o, d
+    [3, ...] against triangles tb [9, ...], broadcasting as there."""
+    det, u_num, tvec, _ = _mt_det_u(o, d, tb)
+    v_num, _ = _mt_v_num(d, tb, tvec)
+    return dense_rule(det, u_num, v_num, mode)
+
+
+def prefilter_pairs(origins, dirs, tris_packed, block_mask, mode: int = 0,
+                    chunk: int = 32768) -> tuple[int, int]:
+    """(pairs the prefilter's u test leaves, pairs both tests leave) of the
+    live blocks' rays against every triangle: the FP32 dense kernels'
+    bound (ops/bounds.py::dense_seconds) counts the rest of
+    Möller–Trumbore on these. Zero padding triangles are never left."""
+    live = torch.repeat_interleave(block_mask != 0, BLOCK_RAYS)
+    o, d = origins[:, live], dirs[:, live]
+    left_u = left_v = 0
+    for s in range(0, o.shape[1], chunk):
+        for c in range(0, tris_packed.shape[1], TRI_TILE):
+            keep_u, keep_v = dense_prefilter(
+                o[:, s:s + chunk, None], d[:, s:s + chunk, None],
+                tris_packed[:, None, c:c + TRI_TILE], mode)
+            left_u += int(keep_u.sum())
+            left_v += int(keep_v.sum())
+    return left_u, left_v
+
+
+def dense_scratch(name: str, origins, ttot: int, rows: int):
+    """(library, slices, feature scratch, partial rows) of a launch of the
+    dense library `name` (trace_dense, sweep_dense, trace_dense_mxu,
+    sweep_dense_mxu), as the library's own `<name>_shape` sizes it
+    (csrc/mt_dense.cuh::nr_dense_slices; the FP32 kernels need no feature
+    scratch)."""
+    lib = cuda_build.load(name)
+    npad = origins.shape[1]
+    slices, feat_doubles = ctypes.c_int(), ctypes.c_longlong()
+    rc = getattr(lib, name + "_shape")(
+        ctypes.c_int(npad), ctypes.c_int(ttot), ctypes.byref(slices),
+        ctypes.byref(feat_doubles))
+    cuda_build.check(lib, rc, name + "_shape")
+    feat = torch.empty(feat_doubles.value, dtype=torch.float64,
+                       device=origins.device)
+    part = torch.empty((slices.value if slices.value > 1 else 0, rows, npad),
+                       dtype=torch.float32, device=origins.device)
+    return lib, slices.value, feat, part
 
 
 def trace_dense_twin(origins, dirs, tris_packed, mode: int, block_mask,
@@ -166,14 +259,14 @@ def _launch_trace_dense(origins, dirs, tris_packed, mode, block_mask):
         ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
         ("tris_packed", tris_packed, torch.float32),
         ("block_mask", block_mask, torch.int32)))
-    n = origins.shape[1]
-    lib = cuda_build.load(lib_name)
+    n, ttot = origins.shape[1], tris_packed.shape[1]
+    lib, slices, _, part = dense_scratch(lib_name, origins, ttot, 2)
     out = torch.empty((2, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
-    rc = getattr(lib, lib_name)(
+    rc = lib.trace_dense(
         p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
-        ctypes.c_int(tris_packed.shape[1]), p(block_mask),
-        ctypes.c_int(mode), p(out), cuda_build.stream_of(origins))
+        ctypes.c_int(ttot), p(block_mask), ctypes.c_int(mode),
+        ctypes.c_int(slices), p(part), p(out), cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, lib_name)
     return out
 
@@ -256,15 +349,15 @@ def _launch_sweep_dense(origins, dirs, tris_packed, outer_cols, with_fwd2,
         ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
         ("tris_packed", tris_packed, torch.float32),
         ("block_mask", block_mask, torch.int32)))
-    n = origins.shape[1]
-    lib = cuda_build.load(lib_name)
-    out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
-                      device=origins.device)
+    n, ttot = origins.shape[1], tris_packed.shape[1]
+    rows = 5 if with_fwd2 else 4
+    lib, slices, _, part = dense_scratch(lib_name, origins, ttot, rows)
+    out = torch.empty((rows, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
-    rc = getattr(lib, lib_name)(
+    rc = lib.sweep_dense(
         p(origins), p(dirs), ctypes.c_int(n), p(tris_packed),
-        ctypes.c_int(tris_packed.shape[1]), ctypes.c_int(outer_cols),
-        p(block_mask), ctypes.c_int(int(with_fwd2)), p(out),
+        ctypes.c_int(ttot), ctypes.c_int(outer_cols), p(block_mask),
+        ctypes.c_int(int(with_fwd2)), ctypes.c_int(slices), p(part), p(out),
         cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, lib_name)
     return out
@@ -300,7 +393,6 @@ def sweep_shells_dense_mxu(origins, dirs, tris_packed, outer_cols: int,
     """`sweep_shells_dense` in the matrix formulation, the same contract.
     CPU tensors run `sweep_shells_dense_twin(..., mxu=True)`; CUDA tensors
     launch csrc/sweep_dense_mxu.cu."""
-    from . import trace_mxu
     args = (origins, dirs, tris_packed, outer_cols, with_fwd2, block_mask)
     _check_sweep_dense("sweep_shells_dense_mxu", origins, tris_packed,
                        outer_cols)
@@ -312,8 +404,8 @@ def sweep_shells_dense_mxu(origins, dirs, tris_packed, outer_cols: int,
         ("block_mask", block_mask, torch.int32)))
     n, ttot = origins.shape[1], tris_packed.shape[1]
     rows = 5 if with_fwd2 else 4
-    lib, slices, feat, part = trace_mxu.dense_scratch("sweep_dense_mxu",
-                                                      origins, ttot, rows)
+    lib, slices, feat, part = dense_scratch("sweep_dense_mxu", origins, ttot,
+                                            rows)
     out = torch.empty((rows, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
     rc = lib.sweep_dense_mxu(

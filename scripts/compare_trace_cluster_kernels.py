@@ -1,6 +1,6 @@
-"""Time and hold the clustered kernels of one checkout of the port: the
-closest hit (K5, K5-MXU), the dual-shell sweep (K1, K1-MXU) and, for the
-matrix sweep code K1-MXU shares, the dense sweep K4-MXU.
+"""Time and hold the trace kernels of one checkout of the port: the
+clustered closest hit (K5, K5-MXU) and dual-shell sweep (K1, K1-MXU), and
+the dense closest hit (K3, K8) and dual-shell sweep (K4, K4-MXU).
 
     python scripts/compare_trace_cluster_kernels.py [TREE]
 
@@ -35,16 +35,21 @@ operands (scripts/ablate_trace_kernel_torch.py: 262,144 rays x 9,216
 triangles, all-ones mask, ANY); (h) K4-MXU on phase 6's small-shell camera
 sweep (1,024 + 1,024 triangles) on (a)'s rays, fwd2; (i) K4-MXU on the
 ablation's `sweep_mxu` operands (262,144 camera rays x (2,304 + 2,304)),
-fwd2. Each with its bound on the live blocks' real pairs and whether it
-equals its twin bit for bit (`trace_dense_twin`/`sweep_shells_dense_twin`
-with mxu=True, in 32,768-ray twin calls), with the pairs its prefilter
-leaves to the epilogue where the checkout has one (this checkout's
-`chip_smoke.py`: `dense_case`, and `recording_dense` for the frame's
-launches). End to end with NR_TRACE_MXU=1: the seeded and the trained
-1080p sphere frames (`chip_smoke.py` phase 18) and the seeded frame on the
-small shells (phase 19's scene, through K4-MXU): wall ms per frame and,
-over one profiled frame, the device ms of all kernels and of the dense
-matrix-form ones.
+fwd2. The FP32 dense kernels on the same operands: K3 (e), (f) (the
+default seeded frame's own launches, the same retraces), (g) (the
+ablation's `current`), K4 (h), (i) (the ablation's `sweep`). Each with its
+bound on the live blocks' real pairs and whether it equals its twin bit
+for bit (`trace_dense_twin`/`sweep_shells_dense_twin`, with mxu=True for
+the matrix form, in 32,768-ray twin calls), with the pairs its prefilter
+leaves where the checkout has one (the FP32 kernels' bound then counts
+them, `mt46_bound_ms` Möller–Trumbore's 46 operations on every pair;
+this checkout's `chip_smoke.py`: `dense_case`, and `recording_dense` for
+the frame's launches). End to end: the seeded 1080p sphere frame and the
+seeded small-shell frame in the default formulation (through K3 and K4),
+and with NR_TRACE_MXU=1 the seeded and the trained sphere frames
+(`chip_smoke.py` phase 18) and the seeded small-shell frame (phase 19's
+scene, through K4-MXU): wall ms per frame and, over one profiled frame,
+the device ms of all kernels and of the dense ones.
 
 For each case and kernel it prints the wrapper's time per call three
 ways: `_ms`, CUDA events, best of 3 x 10 calls; `_mean_ms`, CUDA events,
@@ -345,6 +350,9 @@ def main() -> int:
 
 
 TWIN_CHUNK = 32768   # rays per twin call on the many-wave cases
+# Names of the dense kernels of any checkout of the port, FP32 (K3, K4) and
+# matrix form (K8, K4-MXU, their feature pass), and of their slices' fold.
+DENSE_KERNELS = ("trace_dense", "sweep_dense", "nr_dx_", "nr_dense_fold")
 
 
 def dense_cases(torch, dev, times, trace_mxu, trace_pallas, traversal,
@@ -391,9 +399,27 @@ def dense_cases(torch, dev, times, trace_mxu, trace_pallas, traversal,
                                                      mxu=True), o, d, mask),
             (o, d, tp, mask), 0, real_tris, times)
 
-    # (e) phase 17's K8 slice.
+    def k3_case(o, d, tp, mode, mask, real_tris):
+        return smoke.dense_case(
+            lambda: trace_pallas.trace_dense(o, d, tp, mode, mask, mxu=False),
+            lambda: chunked(lambda a, b, m: trace_pallas.trace_dense_twin(
+                a, b, tp, mode, m), o, d, mask),
+            (o, d, tp, mask), mode, real_tris, times, fp32=True)
+
+    def k4_case(o, d, tp, cols, mask, real_tris):
+        return smoke.dense_case(
+            lambda: trace_pallas.sweep_shells_dense(o, d, tp, cols, True,
+                                                    mask, mxu=False),
+            lambda: chunked(lambda a, b, m: trace_pallas
+                            .sweep_shells_dense_twin(a, b, tp, cols, True, m),
+                            o, d, mask),
+            (o, d, tp, mask), 0, real_tris, times, fp32=True)
+
+    # (e) phase 17's K8 slice, phase 2's K3 slice.
     o3, d3, tp3, bm3 = traversal.dense_trace_operands(outer, o_s, d_s)
     res["e_k8_outer_fwd"] = k8_case(o3, d3, tp3, fwd, bm3,
+                                    outer.num_triangles)
+    res["e_k3_outer_fwd"] = k3_case(o3, d3, tp3, fwd, bm3,
                                     outer.num_triangles)
 
     # (f) the seeded 1080p frame's own K8 launches (NR_TRACE_MXU=1).
@@ -421,12 +447,27 @@ def dense_cases(torch, dev, times, trace_mxu, trace_pallas, traversal,
         "frames": frames,
         "launches": [k8_case(*c, outer.num_triangles) for c in calls]}
     del calls
+    # ... and K3's in the default formulation.
+    frames = 0
+    with smoke.recording_dense(traversal, trace_mxu, matrix=False) as calls:
+        while not calls and frames < 3:
+            neural_frame.render_neural_frame(
+                ctx, env, make_sparams(frames),
+                torch.zeros((3, 1920 * 1080), device=dev))
+            frames += 1
+    torch.cuda.synchronize()
+    res["f_k3_frame_launches"] = {
+        "frames": frames,
+        "launches": [k3_case(*c, outer.num_triangles) for c in calls]}
+    del calls
 
     # (g) the ablation's mxu_hi operands.
     o, d, tris = ablate.trace_workload(9216, 262144, dev)
     tp = ablate.padded(tris, trace_pallas.TRI_TILE)
     ones = torch.ones(o.shape[1] // 512, dtype=torch.int32, device=dev)
     res["g_k8_many_waves"] = k8_case(o, d, tp, traversal.ANY, ones,
+                                     tp.shape[1])
+    res["g_k3_many_waves"] = k3_case(o, d, tp, traversal.ANY, ones,
                                      tp.shape[1])
     del o, d, tris, tp
 
@@ -436,18 +477,26 @@ def dense_cases(torch, dev, times, trace_mxu, trace_pallas, traversal,
     ops4 = traversal.dense_sweep_operands(so, si, o_s, d_s)
     res["h_k4mxu_small_shells"] = k4m_case(
         *ops4[:4], ops4[4], so.num_triangles + si.num_triangles)
+    res["h_k4_small_shells"] = k4_case(
+        *ops4[:4], ops4[4], so.num_triangles + si.num_triangles)
 
     # (i) the ablation's sweep_mxu operands.
     o, d, tp, cols = ablate.sweep_workload(262144, dev)
     ones = torch.ones(o.shape[1] // 512, dtype=torch.int32, device=dev)
     res["i_k4mxu_many_waves"] = k4m_case(o, d, tp, cols, ones, tp.shape[1])
+    res["i_k4_many_waves"] = k4_case(o, d, tp, cols, ones, tp.shape[1])
     del o, d, tp
 
-    # End to end with NR_TRACE_MXU=1: the seeded and trained sphere frames
-    # (chip_smoke.py phase 18) and the seeded frame on the small shells
+    # End to end in the default formulation: the seeded sphere frame
+    # (bench.py's, through K3) and the seeded frame on the small shells
+    # (through K4); with NR_TRACE_MXU=1 the seeded and trained sphere
+    # frames (chip_smoke.py phase 18) and the seeded small-shell frame
     # (phase 19's scene: the dense sweep K4-MXU).
     small = NeuralContext(so, si, seeded)
     trained = NeuralContext(outer, inner, net)
+    for label, c in (("frame_seeded", ctx),
+                     ("small_shell_frame_seeded", small)):
+        res[label] = frame_times(torch, neural_frame, c, env, make_sparams)
     os.environ["NR_TRACE_MXU"] = "1"
     try:
         for label, c in (("mxu_frame_seeded", ctx),
@@ -466,8 +515,8 @@ def dense_cases(torch, dev, times, trace_mxu, trace_pallas, traversal,
 def frame_times(torch, neural_frame, ctx, env, make_sparams, frames=3):
     """One warm-up 1080p frame, then `frames` frames: the wall ms per frame
     (each ended by a synchronise), and under torch.profiler (one more frame)
-    the device ms of all kernels and of the dense matrix-form kernels
-    (names containing "dense_mxu" or "nr_dx_")."""
+    the device ms of all kernels and of the dense kernels, FP32 or matrix
+    form (DENSE_KERNELS)."""
     from torch.profiler import ProfilerActivity, profile
     import time
 
@@ -487,12 +536,12 @@ def frame_times(torch, neural_frame, ctx, env, make_sparams, frames=3):
         frame(frames + 1)
     ev = [e for e in prof.key_averages()
           if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    dense = [e for e in ev if "dense_mxu" in e.key or "nr_dx_" in e.key]
+    dense = [e for e in ev if any(k in e.key for k in DENSE_KERNELS)]
     return {"wall_ms": walls,
             "device_ms": sum(e.self_device_time_total for e in ev) / 1e3,
-            "dense_mxu_device_ms": sum(e.self_device_time_total
-                                       for e in dense) / 1e3,
-            "dense_mxu_calls": sum(e.count for e in dense)}
+            "dense_device_ms": sum(e.self_device_time_total
+                                   for e in dense) / 1e3,
+            "dense_calls": sum(e.count for e in dense)}
 
 
 if __name__ == "__main__":

@@ -353,13 +353,18 @@ class _PairOps(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("math", ["local", "recip", "recipx", "nodiv",
-                                  "probe", "bf16", "mxu", "mxu_prefilter"])
+                                  "probe", "bf16", "mxu", "mxu_prefilter",
+                                  "dense_prefilter", "dense_second_test",
+                                  "mt_pairs"])
 def test_bound_counts_are_the_twins_operations(math):
     """Each pair function's operations, as its twin performs them, are the
-    count its bound takes (ops/bounds.py): 46 for Möller–Trumbore, 47 for
-    nodiv, 50 for the probe, bf16's 45 packed operations and its divide,
-    the matrix form's 4 products, 4 conversions and 5-operation epilogue,
-    and the dense kernels' prefilter's 3 operations."""
+    count its bound takes (ops/bounds.py): 46 for Möller–Trumbore (the
+    ablation's `local` and the production twin `_mt_pairs`), 47 for nodiv,
+    50 for the probe, bf16's 45 packed operations and its divide, the
+    matrix form's 4 products, 4 conversions and 5-operation epilogue, the
+    matrix kernels' prefilter's 3 operations, and the FP32 dense kernels'
+    prefilter: its two tests 24 + 14, the second alone 14, and with the
+    rest of Möller–Trumbore (10) the 46 less the rule's 2 multiplies."""
     rng = np.random.default_rng(3)
     n, t = 7, 11                 # no per-ray or per-triangle tensor has N T
     o, d = (_t(rng.normal(size=(3, n)).astype(np.float32))
@@ -373,6 +378,20 @@ def test_bound_counts_are_the_twins_operations(math):
         elif math == "mxu_prefilter":
             det, u, v = (_t(rng.normal(size=(n, t))) for _ in range(3))
             trace_mxu.certain_miss(det, u, v)
+        elif math == "dense_prefilter":
+            trace_pallas.dense_prefilter(o[:, :, None], d[:, :, None],
+                                         tb[:, None, :])
+        elif math == "dense_second_test":
+            det, u, v = (_t(rng.normal(size=(n, t)).astype(np.float32))
+                         for _ in range(3))
+            tvec = [_t(rng.normal(size=(n, t)).astype(np.float32))
+                    for _ in range(3)]
+            v_num, _ = trace_pallas._mt_v_num(d[:, :, None], tb[:, None, :],
+                                              tvec)
+            trace_pallas._dense_out(v_num, det, u, -u)
+        elif math == "mt_pairs":
+            trace_pallas._mt_pairs(o[:, :, None], d[:, :, None],
+                                   tb[:, None, :])
         else:
             trace_ablation._mt_variant(o, d, tb, math)
     if math == "mxu":
@@ -380,6 +399,14 @@ def test_bound_counts_are_the_twins_operations(math):
                          "convert": bounds.MXU_CONVERSIONS, "product": 4}
     elif math == "mxu_prefilter":
         assert c.ops == {"torch.float32": bounds.MXU_PREFILTER}
+    elif math == "dense_prefilter":
+        assert c.ops == {"torch.float32": bounds.DENSE_U + bounds.DENSE_V}
+    elif math == "dense_second_test":
+        assert c.ops == {"torch.float32": bounds.DENSE_V}
+    elif math == "mt_pairs":
+        assert c.ops == {"torch.float32": bounds.MT_OPS}
+        assert bounds.DENSE_U + bounds.DENSE_V + bounds.DENSE_REST - 2 \
+            == bounds.MT_OPS
     elif math == "bf16":
         assert c.ops == {"torch.bfloat16": bounds.BF16_PACKED_OPS + 1}
     else:

@@ -509,8 +509,8 @@ def test_dense_mxu_kernel_shapes_bit_exact(cuda, case, mode):
     o, d, tp, mask = traversal.dense_trace_operands(outer, o, d)
     if case == "dead_between":
         assert mask.tolist() == [1, 0, 1]
-    slices = trace_mxu.dense_scratch("trace_dense_mxu", o, tp.shape[1],
-                                     2)[1]
+    slices = trace_pallas.dense_scratch("trace_dense_mxu", o, tp.shape[1],
+                                        2)[1]
     assert (slices > 1) == (case != "many_waves")
     ker = trace_mxu.trace_dense_mxu(o, d, tp, mode, mask)
     twin = _dense_twin(lambda a, b, blk: trace_pallas.trace_dense_twin(
@@ -521,7 +521,7 @@ def test_dense_mxu_kernel_shapes_bit_exact(cuda, case, mode):
 
 @pytest.mark.parametrize("name", ["trace_dense_mxu", "sweep_dense_mxu"])
 def test_dense_mxu_launch_shape(cuda, name):
-    """Each dense library sizes its own launch (csrc/mt_mxu.cuh::
+    """Each dense matrix-form library sizes its own launch (csrc/mt_mxu.cuh::
     nr_dx_shape): it splits the triangles until its 64-ray CTAs fill 8 a
     SM, at most one slice per 64-triangle chunk, and a full launch takes
     one slice; the feature scratch holds 24 doubles a triangle."""
@@ -529,8 +529,8 @@ def test_dense_mxu_launch_shape(cuda, name):
     for npad in (512, 8192, 131072, 262144):
         for ttot in (256, 2560, 9216):
             rays = torch.empty((3, npad), device=cuda)
-            _, slices, feat, part = trace_mxu.dense_scratch(name, rays, ttot,
-                                                            5)
+            _, slices, feat, part = trace_pallas.dense_scratch(name, rays,
+                                                               ttot, 5)
             ctas = npad // 64
             assert 1 <= slices <= ttot // 64
             assert slices * ctas >= 8 * sms or slices == ttot // 64
@@ -539,7 +539,7 @@ def test_dense_mxu_launch_shape(cuda, name):
             assert part.shape == ((slices, 5, npad) if slices > 1
                                   else (0, 5, npad))
     rays = torch.empty((3, 262144), device=cuda)
-    assert trace_mxu.dense_scratch(name, rays, 9216, 2)[1] == 1
+    assert trace_pallas.dense_scratch(name, rays, 9216, 2)[1] == 1
 
 
 @pytest.mark.parametrize("with_fwd2", [True, False])
@@ -556,6 +556,126 @@ def test_dense_sweep_mxu_kernel_shapes_bit_exact(cuda, case, with_fwd2):
         ops[0], ops[1])
     assert torch.equal(ker, twin)
     assert (ker[0] < 1e30).sum() > o.shape[1] // 8
+
+
+# The FP32 dense kernels K3 and K4 (csrc/mt_dense.cuh): 512-ray CTAs,
+# 64-triangle chunks, a prefilter before the divide and, for short
+# launches, triangle slices folded per ray; bit-exact to their twins.
+def _dense_fp32_case(device, case):
+    """Operands of the FP32 dense kernels for one launch shape: `one_block`
+    (512 rays, a single live skip block: the most slices), `partial_cta`
+    (4,000 rays: the CTA of the last skip block is partly padding),
+    `dead_between` (live, dead, live skip blocks), `slice_ties` (512 rays
+    against a shell whose every triangle appears twice, the copy 2,304
+    ids later, so equal t's fall in different slices), `wide` (131,072
+    rays) and `many_waves` (2,097,152 rays, a 1080p frame's: one slice).
+    Returns (origins, dirs, outer, inner)."""
+    outer = outward_sphere(24, 48, 1.2).to_tensors(device)
+    inner = outward_sphere(24, 48, 0.8).to_tensors(device)
+    if case == "slice_ties":
+        tp = outer.tris_packed[:, :outer.num_triangles].cpu().numpy()
+        outer = convert.mesh_from_numpy(np.concatenate([tp, tp], axis=1),
+                                        2 * tp.shape[1], device=device)
+    n = {"one_block": 512, "partial_cta": 4000, "dead_between": 1536,
+         "slice_ties": 512, "wide": 131072, "many_waves": 2 ** 21}[case]
+    o, d = _rays(device, n=n, seed=31)
+    if case == "dead_between":
+        o[:, 512:1024] = 3.0 * d[:, 512:1024]    # pointing away: dead
+    return o, d, outer, inner
+
+
+_DENSE_FP32_CASES = ["one_block", "partial_cta", "dead_between",
+                     "slice_ties", "wide", "many_waves"]
+
+
+@pytest.mark.parametrize("mode", [traversal.ANY, traversal.FORWARD_ONLY,
+                                  traversal.BACKWARD_ONLY])
+@pytest.mark.parametrize("case", _DENSE_FP32_CASES)
+def test_dense_kernel_shapes_bit_exact(cuda, case, mode):
+    """K3 bit-exact to its twin on every launch shape, in every mode: the
+    slices' fold (where equal t's of duplicate triangles in different
+    slices must keep the smallest id), a partial CTA, a dead block
+    between live ones, many CTAs."""
+    o, d, outer, _ = _dense_fp32_case(cuda, case)
+    o, d, tp, mask = traversal.dense_trace_operands(outer, o, d)
+    if case == "dead_between":
+        assert mask.tolist() == [1, 0, 1]
+    slices = trace_pallas.dense_scratch("trace_dense", o, tp.shape[1], 2)[1]
+    assert (slices == 1) == (case == "many_waves")
+    if case in ("one_block", "slice_ties"):
+        assert slices == tp.shape[1] // 64
+    before = trace_pallas.trace_dense.launches
+    ker = trace_pallas.trace_dense(o, d, tp, mode, mask, mxu=False)
+    assert trace_pallas.trace_dense.launches == before + 1
+    twin = _dense_twin(lambda a, b, blk: trace_pallas.trace_dense_twin(
+        a, b, tp, mode, mask[blk]), o, d)
+    assert torch.equal(ker, twin)
+    assert (ker[0] < 1e30).sum() > o.shape[1] // 8
+    if case == "slice_ties":
+        hit = ker[0] < 1e30
+        assert int(ker[1].view(torch.int32)[hit].max()) < 2304
+
+
+@pytest.mark.parametrize("with_fwd2", [True, False])
+@pytest.mark.parametrize("case", _DENSE_FP32_CASES)
+def test_dense_sweep_kernel_shapes_bit_exact(cuda, case, with_fwd2):
+    """K4 bit-exact to its twin on every row and launch shape (with
+    `slice_ties`, an outer shell whose forward crossings come twice, in
+    different slices: the strict second row must skip the copy)."""
+    o, d, outer, inner = _dense_fp32_case(cuda, case)
+    ops = traversal.dense_sweep_operands(outer, inner, o, d)
+    if case == "dead_between":
+        assert ops[4].tolist() == [1, 0, 1]
+    before = trace_pallas.sweep_shells_dense.launches
+    ker = trace_pallas.sweep_shells_dense(*ops[:4], with_fwd2, ops[4],
+                                          mxu=False)
+    assert trace_pallas.sweep_shells_dense.launches == before + 1
+    twin = _dense_twin(lambda a, b, blk: trace_pallas.sweep_shells_dense_twin(
+        a, b, ops[2], ops[3], with_fwd2, ops[4][blk]), ops[0], ops[1])
+    assert torch.equal(ker, twin)
+    assert (ker[0] < 1e30).sum() > o.shape[1] // 8
+
+
+def test_dense_sweep_second_crossing_across_slices(cuda):
+    """K4's strict second forward row on a two-lobe outer shell, 512 rays
+    along its axis: the lobes' crossings lie in different slices."""
+    r = np.random.default_rng(37)
+    o = np.stack([np.full(512, -3.0), *r.uniform(-0.3, 0.3, (2, 512))])
+    d = np.stack([np.ones(512), *r.uniform(-0.05, 0.05, (2, 512))])
+    o = torch.as_tensor(o.astype(np.float32), device=cuda)
+    d = torch.as_tensor((d / np.linalg.norm(d, axis=0)).astype(np.float32),
+                        device=cuda)
+    inner = outward_sphere(4, 8, 0.3).to_tensors(cuda)
+    ops = traversal.dense_sweep_operands(_two_lobes(cuda, 8), inner, o, d)
+    assert trace_pallas.dense_scratch("sweep_dense", ops[0],
+                                      ops[2].shape[1], 5)[1] > 2
+    ker = trace_pallas.sweep_shells_dense(*ops[:4], True, ops[4], mxu=False)
+    twin = trace_pallas.sweep_shells_dense_twin(*ops[:4], True, ops[4])
+    assert torch.equal(ker, twin)
+    assert (ker[4] < 1e30).sum() > 300
+
+
+@pytest.mark.parametrize("name", ["trace_dense", "sweep_dense"])
+def test_dense_launch_shape(cuda, name):
+    """Each FP32 dense library sizes its own launch (csrc/mt_dense.cuh::
+    nr_dense_slices): it splits the triangles until its 512-ray CTAs fill
+    16 a SM, at most one slice per 64-triangle chunk, and a full launch
+    takes one slice; it needs no feature scratch."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for npad in (512, 4096, 131072, 262144):
+        for ttot in (256, 2560, 9216):
+            rays = torch.empty((3, npad), device=cuda)
+            _, slices, feat, part = trace_pallas.dense_scratch(name, rays,
+                                                               ttot, 5)
+            ctas = npad // 512
+            assert 1 <= slices <= ttot // 64
+            assert slices * ctas >= 16 * sms or slices == ttot // 64
+            assert slices == 1 or (slices - 1) * ctas < 16 * sms
+            assert feat.numel() == 0
+            assert part.shape == ((slices, 5, npad) if slices > 1
+                                  else (0, 5, npad))
+    rays = torch.empty((3, 2 ** 21), device=cuda)
+    assert trace_pallas.dense_scratch(name, rays, 9216, 2)[1] == 1
 
 
 @pytest.mark.parametrize("entry_pack", [1, 2])
