@@ -1,43 +1,43 @@
-// Shared code of the dense kernels, every ray against every triangle: the
-// launch shape and the fold of triangle slices, used by the FP32 kernels
-// K3 (trace_dense.cu) and K4 (sweep_dense.cu) and the matrix-form kernels
-// K8 and K4-MXU (mt_mxu.cuh); and the FP32 walk of K3 and K4.
+// The FP32 walk of the dense kernels K3 (trace_dense.cu) and K4
+// (sweep_dense.cu): every ray against every triangle, in FP32
+// Möller–Trumbore behind a prefilter. Their launch shape and the fold of
+// triangle slices are dense_slices.cuh's.
 //
-// Slices. A launch whose rays fill fewer than the card's CTA slots splits
-// the triangles into `slices` ranges of whole chunks (blockIdx.y); each
-// slice writes its rows to a partial buffer and nr_dense_fold merges them
-// per ray: the closest hit by (t, smallest id), the sweep's rows by the
-// strict-pair rule and mins. These are selections, so the grouping does
-// not change a bit. nr_dense_slices picks the count: enough slices that
-// the launch reaches `ctas_per_sm` CTAs on every SM, at most one per
-// chunk. Each dense library exports it as `<name>_shape`, and its wrapper
-// sizes the partial buffer from it (ops/trace_pallas.py::dense_scratch).
+// A CTA of DF_THREADS threads takes DF_RAYS rays of one 512-ray skip block
+// (the flag is read at ray0 / 512, so it keeps its meaning), DF_R rays a
+// thread: rays ray0 + i DF_THREADS + tid, so a warp holds 32 neighbouring
+// rays. Triangles are staged DF_CHUNK at a time from their [9, T] rows by
+// 4-byte cp.async into a triangle-major tile (12 floats a triangle: v0,
+// e1, e2, three unused) in a double buffer; a pair reads its triangle as
+// three 16-byte broadcast loads, and the thread runs them against its DF_R
+// rays. A chunk whose triangles all have e1 = 0 (the padding: det = 0 or
+// NaN for every ray, so nr_mt_t misses) is skipped whole.
 //
-// The FP32 walk (df_walk). A CTA of DF_THREADS threads takes DF_RAYS rays
-// of one 512-ray skip block (the flag is read at ray0 / 512, so it keeps
-// its meaning), DF_R rays a thread: rays ray0 + i DF_THREADS + tid, so a
-// warp holds 32 neighbouring rays. Triangles are staged DF_CHUNK at a
-// time from their [9, T] rows by 4-byte cp.async into a triangle-major
-// tile (12 floats a triangle: v0, e1, e2, three unused) in a double
-// buffer; a pair reads its triangle as three 16-byte broadcast loads, and
-// the thread runs them against its DF_R rays. A chunk whose triangles all
-// have e1 = 0 (the padding: det = 0 or NaN for every ray, so nr_mt_t
-// misses) is skipped whole.
+// Settings: 256 threads of two rays, 64-triangle chunks, 16 CTAs per SM
+// for a one-slice launch. A design sweep of other values (PERF.md)
+// found none more than 5% faster on every dense case; without the
+// prefilter the walk took 1.6-2.3x as long, with u and v tested together
+// on every pair 1.2-1.4x, with one ray a thread 1.04-1.12x.
 //
-// Prefilter (df_keep). Möller–Trumbore's divide and its second half only
-// serve the pairs that can hit, and a ray meets the parallelogram of a
-// few of the mesh's triangles. Each pair first computes det and u·det in
-// nr_mt_t's operation order, so with the same values, and tests them
-// without a branch; for each of the thread's rays where some lane of the
-// warp keeps its pair, v·det the same way (DF_STAGES 2; with 1 both on
-// every pair); where some lane still keeps one, the lanes that do run
-// nr_mt_t itself (so t and det are the twin's) and fold it. A rejected
-// pair would fold t = 1e30, which changes no accumulator. The rule, all in
-// f32, with a = |det|, num = u·det or v·det, w = num with its sign flipped
-// where det's sign bit is set (so w = num sgn(det)); nr_mt_t takes u =
-// rn(num rn(1/det)) and rejects a pair unless a >= 1e-8 (and t > 1e-8, so
-// a pair with det = inf, where t is 0 or NaN, too). The rule rejects a
-// pair where
+// Prefilter (df_face, df_keep_u, df_keep_v). Möller–Trumbore's divide and
+// its second half only serve the pairs that can hit, and a ray meets the
+// parallelogram of a few of the mesh's triangles. Each pair first computes
+// det in nr_mt_t's operation order, so with the same value. In
+// FORWARD_ONLY and BACKWARD_ONLY det's sign decides the facing, and a
+// triangle that faces none of the warp's rays ends there; else (in ANY,
+// always) u·det the same way, tested without a branch; for each of the
+// thread's rays where some lane still keeps its pair, v·det; where some
+// lane still keeps one, the lanes that do run nr_mt_t itself (so t and
+// det are the twin's) and fold it. One facing vote for all the thread's
+// rays measured faster than none on long launches and than one a ray on
+// every launch (PERF.md). A rejected pair would fold t = 1e30,
+// which changes no accumulator. The rule, all in f32, with a = |det|,
+// num = u·det or v·det, w = num with its sign flipped where det's sign bit
+// is set (so w = num sgn(det)); nr_mt_t takes u = rn(num rn(1/det)) and
+// rejects a pair unless a >= 1e-8 (and t > 1e-8, so a pair with det = inf,
+// where t is 0 or NaN, too). The rule rejects a pair where
+//   FORWARD_ONLY !(det > 0), BACKWARD_ONLY !(det < 0): the facing cull,
+//     exact with no margin;
 //   w < a (-2^-20) (exact for a >= 1e-8): num and det differ in sign and
 //     |num| / a > 2^-20; rn(1/det) is within 2^-22 of 1/det (2^-24 where
 //     it is normal, 2^-150 absolute where it is subnormal, a > 2^126), so
@@ -46,123 +46,20 @@
 //     (1 + 2^-20)(1 - 2^-24), so the quotient rounds to at least
 //     (1 + 2^-20)(1 - 2^-24)(1 - 2^-22)(1 - 2^-24) > 1 + 2^-23: u > 1, or
 //     v > 1 where u >= 0 makes rn(u + v) > 1 (a(1 + 2^-20) overflowing to
-//     inf leaves only num = inf, whose quotient is inf);
-//   FORWARD_ONLY !(det > 0), BACKWARD_ONLY !(det < 0): the facing cull.
+//     inf leaves only num = inf, whose quotient is inf).
 // a < 1e-8 (padding: a = 0, where w >= 0 = a (1 + 2^-20) or w < -0) may
 // be rejected freely; NaN fails every compare and is left to nr_mt_t.
 // ops/trace_pallas.py::dense_rule is the same rule on the CPU, held
 // against the twin by tests/test_torch_dense_prefilter.py.
 #pragma once
 
-#include "mt.cuh"
+#include "dense_slices.cuh"
 
-#define NR_SKIP_RAYS 512  // rays per skip flag
-
-// The triangle slices of a launch of npad rays against ttot triangles in
-// CTAs of cta_rays rays and chunks of chunk_tris triangles, on the
-// current device.
-static inline int nr_dense_slices(int npad, int ttot, int cta_rays,
-                                  int chunk_tris, int ctas_per_sm,
-                                  int* slices) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int ctas = npad / cta_rays > 1 ? npad / cta_rays : 1;
-  const int want = (sms * ctas_per_sm + ctas - 1) / ctas;
-  const int most = ttot / chunk_tris > 1 ? ttot / chunk_tris : 1;
-  *slices = want < most ? want : most;
-  return 0;
-}
-
-// Slice s's first chunk of nchunks (slice s takes [chunk(s), chunk(s + 1))).
-__device__ __forceinline__ int nr_slice_chunk(int s, int nchunks,
-                                              int slices) {
-  return (int)((long long)s * nchunks / slices);
-}
-
-// The slices' partial rows [slices][kRows][npad] -> out [kRows, npad]:
-// kRows 2 the closest hit (t, id bitcast), 4 or 5 the sweep's rows
-// outer_fwd, outer_bwd, inner_fwd, inner_bwd[, outer_fwd2]. Rays of a
-// dead skip block get the miss (id 0).
-template <int kRows>
-__global__ void __launch_bounds__(256)
-nr_dense_fold(const float* __restrict__ part, int npad, int slices,
-              const int* __restrict__ block_mask, float* __restrict__ out) {
-  const long long r = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (r >= npad) return;
-  const bool live = block_mask[r / NR_SKIP_RAYS] != 0;
-  if constexpr (kRows == 2) {
-    float bt = NR_MISS;
-    int bi = 0;
-    for (int s = 0; live && s < slices; ++s)
-      nr_hit_update(bt, bi, part[2LL * s * npad + r],
-                    __float_as_int(part[(2LL * s + 1) * npad + r]));
-    out[r] = bt;
-    out[npad + r] = __int_as_float(bi);
-  } else {
-    float m1f = NR_MISS, m2f = NR_MISS, m1b = NR_MISS, i1f = NR_MISS,
-          i1b = NR_MISS;
-    for (int s = 0; live && s < slices; ++s) {
-      const float* p = part + (long long)s * kRows * npad + r;
-      if (kRows == 5) {
-        nr_pair_merge(m1f, m2f, p[0], p[4LL * npad]);
-      } else {
-        m1f = fminf(m1f, p[0]);
-      }
-      m1b = fminf(m1b, p[npad]);
-      i1f = fminf(i1f, p[2LL * npad]);
-      i1b = fminf(i1b, p[3LL * npad]);
-    }
-    out[r] = m1f;
-    out[npad + r] = m1b;
-    out[2LL * npad + r] = i1f;
-    out[3LL * npad + r] = i1b;
-    if (kRows == 5) out[4LL * npad + r] = m2f;
-  }
-}
-
-// Launch nr_dense_fold<kRows> on the stream when there is more than one
-// slice.
-template <int kRows>
-void nr_dense_fold_launch(const float* part, int npad, int slices,
-                          const int* block_mask, float* out,
-                          cudaStream_t stream) {
-  if (slices > 1) {
-    nr_dense_fold<kRows><<<(npad + 255) / 256, 256, 0, stream>>>(
-        part, npad, slices, block_mask, out);
-  }
-}
-
-// ---- The FP32 walk (K3, K4) -------------------------------------------
-//
-// The design sweep (scripts/sweep_dense_variants.py) builds the walk with
-// other values of the DF_* settings below. 256 threads of two rays,
-// 64-triangle chunks, 16 CTAs per SM and two tests were within 5% of the
-// fastest variant on every dense case; without the prefilter the walk took
-// 1.6-2.3x as long, with one test 1.2-1.4x, with one ray a thread
-// 1.04-1.12x (PERF.md).
-#ifndef DF_THREADS
 #define DF_THREADS 256     // threads per CTA
-#endif
-#ifndef DF_R
 #define DF_R 2             // rays per thread
-#endif
-#ifndef DF_CHUNK
 #define DF_CHUNK 64        // triangles per staged chunk
-#endif
-#ifndef DF_CTAS_PER_SM
 #define DF_CTAS_PER_SM 16  // a one-slice launch's CTAs per SM, at least
-#endif
-#ifndef DF_STAGES
-#define DF_STAGES 2        // 0 no prefilter; 1 u and v tested together;
-#endif                     // 2 u, then v where some u passes
-#ifndef DF_MIN_CTAS
-#define DF_MIN_CTAS 1      // CTAs per SM the registers must allow
-#endif
 #define DF_RAYS (DF_THREADS * DF_R)
-#define DF_LAUNCH_BOUNDS __launch_bounds__(DF_THREADS, DF_MIN_CTAS)
 #define DF_TRI_STRIDE 12   // floats per triangle in the tile
 static_assert(NR_SKIP_RAYS % DF_RAYS == 0, "a CTA lies in one skip block");
 
@@ -230,29 +127,39 @@ __device__ __forceinline__ bool df_keep_v(const DfRays& r, int i,
   return !df_out<kMode>(vn, p);
 }
 
-// Whether the rule's first test (det and u·det, in nr_mt_t's order, and
-// the facing) leaves the pair of ray i and the triangle (a, b, c) =
-// (v0x v0y v0z e1x | e1y e1z e2x e2y | e2z ...); with kV the second test
-// too, on the same pass. Writes the pair's state for the second test.
-template <int kMode, bool kV>
-__device__ __forceinline__ bool df_keep(const DfRays& r, int i,
-                                        const float4& a, const float4& b,
-                                        const float4& c, DfPair& p) {
-  const float px = r.dy[i] * c.x - r.dz[i] * b.w;
-  const float py = r.dz[i] * b.z - r.dx[i] * c.x;
-  const float pz = r.dx[i] * b.w - r.dy[i] * b.z;
-  p.det = a.w * px + b.x * py + b.y * pz;
+// det of ray i and the triangle (a, b, c) = (v0x v0y v0z e1x | e1y e1z e2x
+// e2y | e2z ...) in nr_mt_t's order, into p.det; returns d x e2.
+__device__ __forceinline__ float3 df_det(const DfRays& r, int i,
+                                         const float4& a, const float4& b,
+                                         const float4& c, DfPair& p) {
+  const float3 pv = make_float3(r.dy[i] * c.x - r.dz[i] * b.w,
+                                r.dz[i] * b.z - r.dx[i] * c.x,
+                                r.dx[i] * b.w - r.dy[i] * b.z);
+  p.det = a.w * pv.x + b.x * pv.y + b.y * pv.z;
+  return pv;
+}
+
+// The rule's facing test: det's sign in FORWARD_ONLY and BACKWARD_ONLY.
+template <int kMode>
+__device__ __forceinline__ bool df_face(const DfPair& p) {
+  if constexpr (kMode == 1) return p.det > 0.0f;
+  if constexpr (kMode == 2) return p.det < 0.0f;
+  return true;
+}
+
+// The rule's u test: u·det in nr_mt_t's order from d x e2 and the rule's
+// bounds. Writes the pair's state for the v test.
+template <int kMode>
+__device__ __forceinline__ bool df_keep_u(const DfRays& r, int i,
+                                          const float4& a, const float3& pv,
+                                          DfPair& p) {
   p.tx = r.ox[i] - a.x;
   p.ty = r.oy[i] - a.y;
   p.tz = r.oz[i] - a.z;
-  const float un = p.tx * px + p.ty * py + p.tz * pz;
+  const float un = p.tx * pv.x + p.ty * pv.y + p.tz * pv.z;
   p.lo = fabsf(p.det) * DF_LO;
   p.hi = fabsf(p.det) * DF_HI;
-  bool miss = df_out<kMode>(un, p);
-  if (kMode == 1) miss |= !(p.det > 0.0f);
-  if (kMode == 2) miss |= !(p.det < 0.0f);
-  if constexpr (kV) miss |= !df_keep_v<kMode>(r, i, a, b, p);
-  return !miss;
+  return !df_out<kMode>(un, p);
 }
 
 // Start the copies of chunk c of the [9, total] triangle rows into `dst`.
@@ -282,37 +189,40 @@ __device__ __forceinline__ bool df_staged_e1(const float* tile) {
 
 // One triangle (a, b, c) against the thread's rays: the prefilter and,
 // where some lane's pair may pass, nr_mt_t on the lane's kept pairs into
-// fold(i, id, t, det).
+// fold(i, id, t, det). The v test runs ray by ray, only where some lane
+// of the warp keeps that ray's pair: on incoherent rays a warp's u test
+// passes for one of its rays far more often than for a given one.
 template <int kMode, class Fold>
 __device__ __forceinline__ void df_triangle(const DfRays& r, const float4& a,
                                             const float4& b, const float4& c,
                                             int id, Fold&& fold) {
   bool keep[DF_R];
-  if constexpr (DF_STAGES == 0) {
+  DfPair p[DF_R];
+  float3 pv[DF_R];
+  bool any = false;
 #pragma unroll
-    for (int i = 0; i < DF_R; ++i) keep[i] = true;
-  } else {
-    DfPair p[DF_R];
-    bool any = false;
-#pragma unroll
-    for (int i = 0; i < DF_R; ++i) {
-      keep[i] = df_keep<kMode, DF_STAGES == 1>(r, i, a, b, c, p[i]);
-      any |= keep[i];
-    }
-    if (!__any_sync(0xffffffffu, any)) return;
-    if constexpr (DF_STAGES == 2) {
-      // Ray by ray: on incoherent rays a warp's first test passes for
-      // one of its rays far more often than for a given one.
-      any = false;
-#pragma unroll
-      for (int i = 0; i < DF_R; ++i) {
-        if (__any_sync(0xffffffffu, keep[i]))
-          keep[i] = keep[i] & df_keep_v<kMode>(r, i, a, b, p[i]);
-        any |= keep[i];
-      }
-      if (!__any_sync(0xffffffffu, any)) return;
-    }
+  for (int i = 0; i < DF_R; ++i) {
+    pv[i] = df_det(r, i, a, b, c, p[i]);
+    keep[i] = df_face<kMode>(p[i]);
+    any |= keep[i];
   }
+  // In FORWARD_ONLY and BACKWARD_ONLY, no facing pair in the warp: done.
+  if (kMode != 0 && !__any_sync(0xffffffffu, any)) return;
+  any = false;
+#pragma unroll
+  for (int i = 0; i < DF_R; ++i) {
+    keep[i] = keep[i] & df_keep_u<kMode>(r, i, a, pv[i], p[i]);
+    any |= keep[i];
+  }
+  if (!__any_sync(0xffffffffu, any)) return;
+  any = false;
+#pragma unroll
+  for (int i = 0; i < DF_R; ++i) {
+    if (__any_sync(0xffffffffu, keep[i]))
+      keep[i] = keep[i] & df_keep_v<kMode>(r, i, a, b, p[i]);
+    any |= keep[i];
+  }
+  if (!__any_sync(0xffffffffu, any)) return;
 #pragma unroll
   for (int i = 0; i < DF_R; ++i) {
     if (keep[i]) {

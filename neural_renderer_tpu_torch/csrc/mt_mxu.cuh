@@ -34,7 +34,7 @@
 //   t > MIN_T. Facing is -det: FORWARD == det > 0.
 #pragma once
 
-#include "mt_dense.cuh"
+#include "dense_slices.cuh"
 
 #define MXU_MT 4                // 8-ray m-tiles per warp (clustered kernels)
 #define MXU_COMBOS 6            // (quantity, k4 group) products per tile
@@ -229,7 +229,7 @@ __device__ __forceinline__ void nr_sweep_quad(MxuSweepN<N>& s,
 // the H100) cost more than its products, and a ray meets the parallelogram
 // of only a few of the mesh's triangles.
 //
-// Slices: csrc/mt_dense.cuh's, DX_CTAS_PER_SM CTAs per SM at least, at
+// Slices: csrc/dense_slices.cuh's, DX_CTAS_PER_SM CTAs per SM at least, at
 // most one slice per chunk (nr_dx_shape, exported by each library as
 // `<name>_shape`; ops/trace_pallas.py::dense_scratch sizes the scratch
 // from it).

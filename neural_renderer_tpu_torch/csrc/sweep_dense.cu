@@ -22,7 +22,7 @@
 #include "mt_dense.cuh"
 
 template <bool kFwd2>
-__global__ void DF_LAUNCH_BOUNDS
+__global__ void __launch_bounds__(DF_THREADS)
 sweep_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    int npad, const float* __restrict__ tris, int ttot,
                    int outer_cols, const int* __restrict__ block_mask,

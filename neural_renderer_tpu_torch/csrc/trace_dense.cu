@@ -14,14 +14,14 @@
 // nr_dense_fold merges the slices' partial rows per ray by (t, id).
 //
 // Bound (ops/bounds.py): FP32 operations, 46 per (ray, triangle) pair of
-// the live blocks without a prefilter; with it, the operations up to the
-// prefilter's test of u on every pair, its test of v on the pairs the
-// first test leaves, and the rest of Möller–Trumbore on the pairs the
-// second leaves (ops/trace_pallas.py::prefilter_pairs).
+// the live blocks without a prefilter; with it, det on every pair, the
+// prefilter's u test on the pairs its facing test leaves, its v test on
+// the pairs the u test leaves, and the rest of Möller–Trumbore on the
+// pairs the v test leaves (ops/trace_pallas.py::prefilter_pairs).
 #include "mt_dense.cuh"
 
 template <int kMode>
-__global__ void DF_LAUNCH_BOUNDS
+__global__ void __launch_bounds__(DF_THREADS)
 trace_dense_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    int npad, const float* __restrict__ tris, int ttot,
                    const int* __restrict__ block_mask, int slices,

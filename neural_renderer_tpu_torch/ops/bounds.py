@@ -21,13 +21,16 @@ zero, and so do loads. The counts per (ray, triangle) pair:
   Möller–Trumbore, `local` (mt.cuh::nr_mt_t; the production trace and
   sweep kernels K1, K3, K4, K5 and `recip`, `recipx`): d x e2 9, det 5,
   1/det 1, o - v0 3, u 6, q 9, v 6, u + v 1, t 6 = 46.
-  The FP32 dense kernels' prefilter (K3, K4; mt_dense.cuh::df_keep) needs
-  Möller–Trumbore only where its rule leaves a pair: the function is
-  det and u·det (d x e2, det, o - v0 and u·det: 22) plus the rule's two
-  bounds (|det| (-2^-20), |det| (1 + 2^-20)) on every pair = 24
-  (DENSE_U); q and v·det on the pairs the u test leaves = 14 (DENSE_V);
-  1/det, u, v, u + v and t (10, DENSE_REST) on the pairs both leave
-  (trace_pallas.prefilter_pairs counts them on the call's operands).
+  The FP32 dense kernels' prefilter (K3, K4; mt_dense.cuh::df_face,
+  df_keep_u, df_keep_v) needs Möller–Trumbore only where its rule leaves a
+  pair: the function is d x e2 and det on every pair = 14 (DENSE_DET);
+  o - v0, u·det and the rule's two bounds (|det| (-2^-20),
+  |det| (1 + 2^-20)) on the pairs the facing test leaves = 10 (DENSE_U;
+  every pair in ANY, the pairs det's sign keeps in FORWARD_ONLY and
+  BACKWARD_ONLY); q and v·det on the pairs the u test leaves = 14
+  (DENSE_V); 1/det, u, v, u + v and t (10, DENSE_REST) on the pairs the v
+  test leaves (trace_pallas.prefilter_pairs counts them on the call's
+  operands).
   Their bound counts that (dense_seconds), beside the 46 per pair.
   `nodiv` (mt_variants.cuh::MtNodiv): the same 41 before the culls, then
   u_num s, v_num s, t_num s 3, u + v 1, eps |det| 1, t = ts / |det| 1 = 47.
@@ -78,9 +81,10 @@ MXU_FLOPS = 38                   # the matrix form's products, per pair
 MXU_EPILOGUE = 5                 # its FP32 epilogue, per pair
 MXU_CONVERSIONS = 4              # FP64-to-FP32 conversions, per pair
 MXU_PREFILTER = 3                # the dense kernels' prefilter, per pair
-DENSE_U = 24                     # the FP32 dense prefilter's first test
-DENSE_V = 14                     # its second, where the first leaves a pair
-DENSE_REST = MT_OPS - 36         # the rest of Möller–Trumbore, where both do
+DENSE_DET = 14                   # the FP32 dense prefilter's det, every pair
+DENSE_U = 10                     # its u test, where the facing leaves a pair
+DENSE_V = 14                     # its v test, where the u test leaves one
+DENSE_REST = MT_OPS - 36         # the rest of Möller–Trumbore, where v does
 
 
 def trace_seconds(math: str, pairs: int) -> float:
@@ -110,10 +114,12 @@ def mxu_seconds(pairs: int, bf16_passes: int | None = None,
                converted * MXU_CONVERSIONS / CONVERSION_RATE)
 
 
-def dense_seconds(pairs: int, left_u: int, left_v: int) -> float:
+def dense_seconds(pairs: int, facing: int, left_u: int,
+                  left_v: int) -> float:
     """The least time of `pairs` pairs of the FP32 dense kernels' function
-    (K3, K4): the prefilter's first test on every pair, its second on the
-    `left_u` pairs the first leaves, the rest of Möller–Trumbore on the
-    `left_v` pairs both leave (the module docstring)."""
-    return (pairs * DENSE_U + left_u * DENSE_V
+    (K3, K4): det on every pair, the u test on the `facing` pairs the
+    facing test leaves, the v test on the `left_u` pairs the u test leaves,
+    the rest of Möller–Trumbore on the `left_v` pairs the v test leaves
+    (the module docstring; `trace_pallas.prefilter_pairs` counts them)."""
+    return (pairs * DENSE_DET + facing * DENSE_U + left_u * DENSE_V
             + left_v * DENSE_REST) / FP32_RATE

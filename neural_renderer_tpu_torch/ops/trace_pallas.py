@@ -13,18 +13,19 @@ the clustered sweep without worklists, for shell pairs too small for
 clusters to pay). Both walk `csrc/mt_dense.cuh`: CTAs of 512 rays, two a
 thread (the TPU kernel's block, so its skip flag means the same thing);
 triangles staged in a double-buffered triangle-major tile;
-a prefilter that tests det and u·det, then v·det, of each pair without a
-branch and runs the divide and the rest of Möller–Trumbore only where
-some pair of the warp may hit (`dense_rule` is its rule,
-`prefilter_pairs` counts what it leaves); and, for launches too short to
-fill the card, triangle slices folded per ray (the library sizes the
-launch: `dense_scratch`). Built with -fmad=false, they round op by op like
+a prefilter that tests each pair's facing (det's sign, in FORWARD_ONLY
+and BACKWARD_ONLY), then u·det, then v·det, each without a branch where
+some pair of the warp still passes, and runs the divide and the rest of
+Möller–Trumbore only there (`dense_rule` is its rule, `prefilter_pairs`
+counts what each test leaves); and, for launches too short to fill the
+card, triangle slices folded per ray (the library sizes the launch:
+`dense_scratch`). Built with -fmad=false, they round op by op like
 `_mt_pairs` below and are held bit-exact to `trace_dense_twin` and
 `sweep_shells_dense_twin`. Bound on the card (`ops/bounds.py`): FP32
 operations, 46 per (ray, triangle) pair of the live blocks (x the shells'
-real triangles), or, counting what the prefilter leaves, 24 per pair, 14
-more on the pairs its u test leaves and 10 on those both tests leave
-(`bounds.dense_seconds`).
+real triangles), or, counting what the prefilter leaves, 14 per pair
+(det), 10 more on the pairs the facing test leaves, 14 on those its u
+test leaves and 10 on those its v test leaves (`bounds.dense_seconds`).
 
 With `NR_TRACE_MXU=1` (or `mxu=True`) both wrappers take the matrix
 formulation of `ops/trace_mxu.py`: `trace_dense` the kernel
@@ -61,12 +62,10 @@ DENSE_LO = -2.0 ** -20
 DENSE_HI = 1.0 + 2.0 ** -20
 
 
-def _mt_det_u(o, d, tb):
-    """The first half of Möller–Trumbore (`_mt_pairs`), rays o, d [3, ...]
-    against triangles tb [9, ...]: (det, u·det, o - v0, d x e2)."""
-    ox, oy, oz = o[0], o[1], o[2]
+def _mt_det(d, tb):
+    """det of `_mt_pairs`, rays d [3, ...] against triangles tb [9, ...]:
+    (det, d x e2)."""
     dx, dy, dz = d[0], d[1], d[2]
-    v0x, v0y, v0z = tb[0], tb[1], tb[2]
     e1x, e1y, e1z = tb[3], tb[4], tb[5]
     e2x, e2y, e2z = tb[6], tb[7], tb[8]
 
@@ -74,11 +73,24 @@ def _mt_det_u(o, d, tb):
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
-    u_num = tx * px + ty * py + tz * pz
-    return det, u_num, (tx, ty, tz), (px, py, pz)
+    return det, (px, py, pz)
+
+
+def _mt_u_num(o, tb, pvec):
+    """u·det of `_mt_pairs` from d x e2 (`_mt_det`): (u·det, o - v0)."""
+    px, py, pz = pvec
+    tx = o[0] - tb[0]
+    ty = o[1] - tb[1]
+    tz = o[2] - tb[2]
+    return tx * px + ty * py + tz * pz, (tx, ty, tz)
+
+
+def _mt_det_u(o, d, tb):
+    """The first half of Möller–Trumbore (`_mt_pairs`), rays o, d [3, ...]
+    against triangles tb [9, ...]: (det, u·det, o - v0)."""
+    det, pvec = _mt_det(d, tb)
+    u_num, tvec = _mt_u_num(o, tb, pvec)
+    return det, u_num, tvec
 
 
 def _mt_v_num(d, tb, tvec):
@@ -98,7 +110,7 @@ def _mt_pairs(o, d, tb):
     epsilon). Facing is carried by det's sign: FORWARD (facing < 0) ==
     det > 0. The CUDA kernels evaluate the same expressions in the same
     order (csrc/mt.cuh)."""
-    det, u_num, tvec, _ = _mt_det_u(o, d, tb)
+    det, u_num, tvec = _mt_det_u(o, d, tb)
     ok = torch.abs(det) >= TRI_EPSILON
     inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
     u = u_num * inv_det
@@ -145,6 +157,23 @@ def _mode_cull(t, det, mode: int):
     return t
 
 
+def _dense_facing(det, mode: int):
+    """The prefilter's facing test: det > 0 in mode 1 FORWARD_ONLY, det < 0
+    in mode 2 BACKWARD_ONLY, every pair in mode 0 ANY."""
+    if mode == 1:
+        return det > 0.0
+    if mode == 2:
+        return det < 0.0
+    return torch.ones_like(det, dtype=torch.bool)
+
+
+def _dense_bounds(det):
+    """The prefilter's bounds on a numerator: |det| DENSE_LO, |det|
+    DENSE_HI."""
+    a = det.abs()
+    return a * DENSE_LO, a * DENSE_HI
+
+
 def _dense_out(num, det, lo, hi):
     """The prefilter's test of one numerator (u·det or v·det): True where
     num sgn(det) (det's sign bit flips num's) is below lo = |det| DENSE_LO
@@ -155,54 +184,55 @@ def _dense_out(num, det, lo, hi):
 
 def dense_rule(det, u_num, v_num, mode: int = 0):
     """The FP32 dense kernels' prefilter rule on the CPU
-    (csrc/mt_dense.cuh::df_keep, df_keep_v, where the argument is written
-    out) on a pair's f32 det, u·det and v·det: (keep_u, keep_v), False
-    where the first test (det and u·det, with the facing cull of mode 1
-    FORWARD_ONLY / 2 BACKWARD_ONLY) or both tests (then v·det) leave a
-    pair that Möller–Trumbore (`_mt_pairs`, nr_mt_t) certainly rejects."""
-    a = det.abs()
-    lo, hi = a * DENSE_LO, a * DENSE_HI
-    keep_u = ~_dense_out(u_num, det, lo, hi)
-    if mode == 1:
-        keep_u &= det > 0.0
-    elif mode == 2:
-        keep_u &= det < 0.0
-    return keep_u, keep_u & ~_dense_out(v_num, det, lo, hi)
+    (csrc/mt_dense.cuh::df_face, df_keep_u, df_keep_v, where the argument
+    is written out) on a pair's f32 det, u·det and v·det: (facing, keep_u,
+    keep_v), False where the facing test (mode 1 FORWARD_ONLY, 2
+    BACKWARD_ONLY; every pair passes in mode 0), then the u test, then the
+    v test leave a pair that Möller–Trumbore (`_mt_pairs`, nr_mt_t)
+    certainly rejects."""
+    face = _dense_facing(det, mode)
+    lo, hi = _dense_bounds(det)
+    keep_u = face & ~_dense_out(u_num, det, lo, hi)
+    return face, keep_u, keep_u & ~_dense_out(v_num, det, lo, hi)
 
 
 def dense_prefilter(o, d, tb, mode: int = 0):
     """`dense_rule` on `_mt_pairs`'s own det, u·det and v·det of rays o, d
     [3, ...] against triangles tb [9, ...], broadcasting as there."""
-    det, u_num, tvec, _ = _mt_det_u(o, d, tb)
+    det, u_num, tvec = _mt_det_u(o, d, tb)
     v_num, _ = _mt_v_num(d, tb, tvec)
     return dense_rule(det, u_num, v_num, mode)
 
 
 def prefilter_pairs(origins, dirs, tris_packed, block_mask, mode: int = 0,
-                    chunk: int = 32768) -> tuple[int, int]:
-    """(pairs the prefilter's u test leaves, pairs both tests leave) of the
-    live blocks' rays against every triangle: the FP32 dense kernels'
-    bound (ops/bounds.py::dense_seconds) counts the rest of
-    Möller–Trumbore on these. Zero padding triangles are never left."""
+                    chunk: int = 32768) -> tuple[int, int, int]:
+    """(pairs the prefilter's facing test leaves, pairs its u test leaves,
+    pairs its v test leaves) of the live blocks' rays against every
+    triangle: the FP32 dense kernels' bound (ops/bounds.py::dense_seconds)
+    counts the u test on the first, the v test on the second and the rest
+    of Möller–Trumbore on the third. Triangles with e1 = 0 (the padding,
+    which the kernels skip, and a mesh's degenerate ones: det = 0, which
+    every test rejects) are not counted."""
     live = torch.repeat_interleave(block_mask != 0, BLOCK_RAYS)
     o, d = origins[:, live], dirs[:, live]
-    left_u = left_v = 0
+    tris_packed = tris_packed[:, (tris_packed[3:6] != 0).any(dim=0)]
+    left = [0, 0, 0]
     for s in range(0, o.shape[1], chunk):
         for c in range(0, tris_packed.shape[1], TRI_TILE):
-            keep_u, keep_v = dense_prefilter(
+            kept = dense_prefilter(
                 o[:, s:s + chunk, None], d[:, s:s + chunk, None],
                 tris_packed[:, None, c:c + TRI_TILE], mode)
-            left_u += int(keep_u.sum())
-            left_v += int(keep_v.sum())
-    return left_u, left_v
+            for k, keep in enumerate(kept):
+                left[k] += int(keep.sum())
+    return tuple(left)
 
 
 def dense_scratch(name: str, origins, ttot: int, rows: int):
     """(library, slices, feature scratch, partial rows) of a launch of the
     dense library `name` (trace_dense, sweep_dense, trace_dense_mxu,
     sweep_dense_mxu), as the library's own `<name>_shape` sizes it
-    (csrc/mt_dense.cuh::nr_dense_slices; the FP32 kernels need no feature
-    scratch)."""
+    (csrc/dense_slices.cuh::nr_dense_slices; the FP32 kernels need no
+    feature scratch)."""
     lib = cuda_build.load(name)
     npad = origins.shape[1]
     slices, feat_doubles = ctypes.c_int(), ctypes.c_longlong()

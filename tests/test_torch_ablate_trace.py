@@ -355,7 +355,8 @@ class _PairOps(TorchDispatchMode):
 @pytest.mark.parametrize("math", ["local", "recip", "recipx", "nodiv",
                                   "probe", "bf16", "mxu", "mxu_prefilter",
                                   "dense_prefilter", "dense_second_test",
-                                  "mt_pairs"])
+                                  "mt_pairs", "dense_facing",
+                                  "dense_first_test"])
 def test_bound_counts_are_the_twins_operations(math):
     """Each pair function's operations, as its twin performs them, are the
     count its bound takes (ops/bounds.py): 46 for Möller–Trumbore (the
@@ -363,13 +364,19 @@ def test_bound_counts_are_the_twins_operations(math):
     50 for the probe, bf16's 45 packed operations and its divide, the
     matrix form's 4 products, 4 conversions and 5-operation epilogue, the
     matrix kernels' prefilter's 3 operations, and the FP32 dense kernels'
-    prefilter: its two tests 24 + 14, the second alone 14, and with the
-    rest of Möller–Trumbore (10) the 46 less the rule's 2 multiplies."""
+    prefilter: det and the facing test 14, the u test 10, the v test 14,
+    all three 38, and with the rest of Möller–Trumbore (10) the 46 less
+    the rule's 2 multiplies."""
     rng = np.random.default_rng(3)
     n, t = 7, 11                 # no per-ray or per-triangle tensor has N T
     o, d = (_t(rng.normal(size=(3, n)).astype(np.float32))
             for _ in range(2))
     tb = _t(rng.normal(size=(9, t)).astype(np.float32))
+
+    def pair_operands(k):
+        return [_t(rng.normal(size=(n, t)).astype(np.float32))
+                for _ in range(k)]
+
     with _PairOps(n * t) as c:
         if math == "probe":
             trace_ablation._probe(o, d, tb)
@@ -380,33 +387,41 @@ def test_bound_counts_are_the_twins_operations(math):
             trace_mxu.certain_miss(det, u, v)
         elif math == "dense_prefilter":
             trace_pallas.dense_prefilter(o[:, :, None], d[:, :, None],
-                                         tb[:, None, :])
+                                         tb[:, None, :], 1)
+        elif math == "dense_facing":
+            det, _ = trace_pallas._mt_det(d[:, :, None], tb[:, None, :])
+            trace_pallas._dense_facing(det, 1)
+        elif math == "dense_first_test":
+            det, px, py, pz = pair_operands(4)
+            u_num, _ = trace_pallas._mt_u_num(o[:, :, None], tb[:, None, :],
+                                              (px, py, pz))
+            lo, hi = trace_pallas._dense_bounds(det)
+            trace_pallas._dense_out(u_num, det, lo, hi)
         elif math == "dense_second_test":
-            det, u, v = (_t(rng.normal(size=(n, t)).astype(np.float32))
-                         for _ in range(3))
-            tvec = [_t(rng.normal(size=(n, t)).astype(np.float32))
-                    for _ in range(3)]
+            det, u = pair_operands(2)
             v_num, _ = trace_pallas._mt_v_num(d[:, :, None], tb[:, None, :],
-                                              tvec)
+                                              pair_operands(3))
             trace_pallas._dense_out(v_num, det, u, -u)
         elif math == "mt_pairs":
             trace_pallas._mt_pairs(o[:, :, None], d[:, :, None],
                                    tb[:, None, :])
         else:
             trace_ablation._mt_variant(o, d, tb, math)
+    dense = {"dense_prefilter": bounds.DENSE_DET + bounds.DENSE_U
+             + bounds.DENSE_V, "dense_facing": bounds.DENSE_DET,
+             "dense_first_test": bounds.DENSE_U,
+             "dense_second_test": bounds.DENSE_V}
     if math == "mxu":
         assert c.ops == {"torch.float32": bounds.MXU_EPILOGUE,
                          "convert": bounds.MXU_CONVERSIONS, "product": 4}
     elif math == "mxu_prefilter":
         assert c.ops == {"torch.float32": bounds.MXU_PREFILTER}
-    elif math == "dense_prefilter":
-        assert c.ops == {"torch.float32": bounds.DENSE_U + bounds.DENSE_V}
-    elif math == "dense_second_test":
-        assert c.ops == {"torch.float32": bounds.DENSE_V}
+    elif math in dense:
+        assert c.ops == {"torch.float32": dense[math]}
     elif math == "mt_pairs":
         assert c.ops == {"torch.float32": bounds.MT_OPS}
-        assert bounds.DENSE_U + bounds.DENSE_V + bounds.DENSE_REST - 2 \
-            == bounds.MT_OPS
+        assert bounds.DENSE_DET + bounds.DENSE_U + bounds.DENSE_V \
+            + bounds.DENSE_REST - 2 == bounds.MT_OPS
     elif math == "bf16":
         assert c.ops == {"torch.bfloat16": bounds.BF16_PACKED_OPS + 1}
     else:

@@ -563,8 +563,9 @@ def test_dense_sweep_mxu_kernel_shapes_bit_exact(cuda, case, with_fwd2):
 # launches, triangle slices folded per ray; bit-exact to their twins.
 def _dense_fp32_case(device, case):
     """Operands of the FP32 dense kernels for one launch shape: `one_block`
-    (512 rays, a single live skip block: the most slices), `partial_cta`
-    (4,000 rays: the CTA of the last skip block is partly padding),
+    (512 rays, a single live skip block: the most slices), `padded_block`
+    (4,000 rays: the last skip block is partly padding rays; a CTA is one
+    whole skip block, so no CTA is partial within one),
     `dead_between` (live, dead, live skip blocks), `slice_ties` (512 rays
     against a shell whose every triangle appears twice, the copy 2,304
     ids later, so equal t's fall in different slices), `wide` (131,072
@@ -576,7 +577,7 @@ def _dense_fp32_case(device, case):
         tp = outer.tris_packed[:, :outer.num_triangles].cpu().numpy()
         outer = convert.mesh_from_numpy(np.concatenate([tp, tp], axis=1),
                                         2 * tp.shape[1], device=device)
-    n = {"one_block": 512, "partial_cta": 4000, "dead_between": 1536,
+    n = {"one_block": 512, "padded_block": 4000, "dead_between": 1536,
          "slice_ties": 512, "wide": 131072, "many_waves": 2 ** 21}[case]
     o, d = _rays(device, n=n, seed=31)
     if case == "dead_between":
@@ -584,7 +585,7 @@ def _dense_fp32_case(device, case):
     return o, d, outer, inner
 
 
-_DENSE_FP32_CASES = ["one_block", "partial_cta", "dead_between",
+_DENSE_FP32_CASES = ["one_block", "padded_block", "dead_between",
                      "slice_ties", "wide", "many_waves"]
 
 
@@ -594,8 +595,8 @@ _DENSE_FP32_CASES = ["one_block", "partial_cta", "dead_between",
 def test_dense_kernel_shapes_bit_exact(cuda, case, mode):
     """K3 bit-exact to its twin on every launch shape, in every mode: the
     slices' fold (where equal t's of duplicate triangles in different
-    slices must keep the smallest id), a partial CTA, a dead block
-    between live ones, many CTAs."""
+    slices must keep the smallest id), padding rays in the last block, a
+    dead block between live ones, many CTAs."""
     o, d, outer, _ = _dense_fp32_case(cuda, case)
     o, d, tp, mask = traversal.dense_trace_operands(outer, o, d)
     if case == "dead_between":
@@ -657,7 +658,7 @@ def test_dense_sweep_second_crossing_across_slices(cuda):
 
 @pytest.mark.parametrize("name", ["trace_dense", "sweep_dense"])
 def test_dense_launch_shape(cuda, name):
-    """Each FP32 dense library sizes its own launch (csrc/mt_dense.cuh::
+    """Each FP32 dense library sizes its own launch (csrc/dense_slices.cuh::
     nr_dense_slices): it splits the triangles until its 512-ray CTAs fill
     16 a SM, at most one slice per 64-triangle chunk, and a full launch
     takes one slice; it needs no feature scratch."""

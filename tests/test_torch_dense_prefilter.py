@@ -2,12 +2,13 @@
 
 The dense closest hit (K3, csrc/trace_dense.cu) and the dense sweep (K4,
 csrc/sweep_dense.cu) run Möller–Trumbore's divide and second half only on
-the pairs their prefilter leaves (csrc/mt_dense.cuh::df_keep, df_keep_v).
-`trace_pallas.dense_rule` is the prefilter's rule on a pair's f32 det, u·det
-and v·det, `dense_prefilter` the rule on the twin's own values, and
-`prefilter_pairs` counts what it leaves for the kernels' bound. A pair the
-rule rejects must be one that the twin rejects too (the kernels are held
-bit-exact to the twins on the card by tests/test_torch_cuda.py): held here
+the pairs their prefilter leaves (csrc/mt_dense.cuh::df_face, df_keep_u,
+df_keep_v). `trace_pallas.dense_rule` is the prefilter's rule on a pair's
+f32 det, u·det and v·det, `dense_prefilter` the rule on the twin's own
+values, and `prefilter_pairs` counts what it leaves for the kernels'
+bound. A pair the rule rejects must be one that the twin rejects too (the
+kernels are held bit-exact to the twins on the card by
+tests/test_torch_cuda.py): held here
 on ray/triangle pairs of the parity tests' spheres, and on f32 numerators
 placed at each of the rule's margins, where the twin's epilogue
 (`trace_mxu.pair_epilogue`, the same operations as csrc/mt.cuh::nr_mt_t
@@ -42,17 +43,21 @@ def _rays(n, seed, inside=0.25):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_prefilter_rejects_only_rejected_pairs(mode):
     """On 1,000 rays x 2,304 triangles no pair the rule rejects is kept by
-    the twin (`_mt_pairs` with the facing cull), the second test keeps a
-    subset of the first, and together they leave few pairs a ray."""
+    the twin (`_mt_pairs` with the facing cull), the facing test is the
+    twin's facing cull (every pair in ANY), each test keeps a subset of
+    the one before, and together they leave few pairs a ray."""
     o, d = _rays(1000, seed=3)
     tb = outward_sphere(24, 48, 1.15).to_tensors("cpu").tris_packed
     o3, d3, tb3 = o[:, :, None], d[:, :, None], tb[:, None, :]
     t, det = trace_pallas._mt_pairs(o3, d3, tb3)
     hit = trace_pallas._mode_cull(t, det, mode) < MISS
-    keep_u, keep_v = trace_pallas.dense_prefilter(o3, d3, tb3, mode)
+    face, keep_u, keep_v = trace_pallas.dense_prefilter(o3, d3, tb3, mode)
     assert int(hit.sum()) > 400
+    assert torch.equal(face, [torch.ones_like(face), det > 0.0,
+                              det < 0.0][mode])
     assert not bool((hit & ~keep_v).any())
     assert not bool((keep_v & ~keep_u).any())
+    assert not bool((keep_u & ~face).any())
     assert keep_u.double().mean().item() < 0.2
     assert keep_v.double().mean().item() < 0.01
 
@@ -120,7 +125,7 @@ def test_prefilter_margins(mode):
         u = nums[:, None].expand(-1, nums.numel())
         v = nums[None, :].expand(nums.numel(), -1)
         dt = torch.full_like(u, float(det))
-        keep_u, keep_v = trace_pallas.dense_rule(dt, u, v, mode)
+        face, keep_u, keep_v = trace_pallas.dense_rule(dt, u, v, mode)
         for x in (0.5, 2.0 ** -22, -0.5):
             # t·det giving t = x, and an absolute t·det near 2^-100.
             for t_num in (dt * x, torch.full_like(dt, 1.5 * 2.0 ** -100)):
@@ -128,6 +133,7 @@ def test_prefilter_margins(mode):
                 assert not bool((ok & ~keep_v).any()), (float(det), x)
                 kept += int(ok.sum())
         assert not bool((keep_v & ~keep_u).any())
+        assert not bool((keep_u & ~face).any())
         rejected += int((~keep_v).sum())
     assert rejected > 0 and kept > 0
 
@@ -141,29 +147,39 @@ def test_underflowing_quotient_is_left_to_the_twin():
     v_num = torch.tensor([2.0 ** 98], dtype=torch.float32)
     t_num = det * 0.5
     assert bool(_accepted(det, u_num, v_num, t_num, 0).all())
-    assert bool(trace_pallas.dense_rule(det, u_num, v_num)[1].all())
+    assert bool(trace_pallas.dense_rule(det, u_num, v_num)[2].all())
     # Beyond the bound the rule rejects, and so does the twin.
     u_num = torch.tensor([-2.0 ** 80 * 1.5], dtype=torch.float32)
-    assert not bool(trace_pallas.dense_rule(det, u_num, v_num)[0].any())
+    assert not bool(trace_pallas.dense_rule(det, u_num, v_num)[1].any())
     assert not bool(_accepted(det, u_num, v_num, t_num, 0).any())
 
 
 def test_prefilter_pairs_counts_the_live_blocks():
     """`prefilter_pairs` counts, over the live 512-ray blocks, the pairs
-    each test leaves against every triangle, in any chunking; both tests
-    leave every pair the twin keeps."""
+    each test leaves against every triangle with e1 != 0 (not the
+    padding, nor a mesh's degenerate triangles), in any chunking; the
+    facing test leaves every pair in ANY and those det's sign keeps in
+    FORWARD_ONLY; all three leave every pair the twin keeps."""
     o, d = _rays(1536, seed=5, inside=0.0)
-    tb = torch.nn.functional.pad(
-        outward_sphere(8, 16, 1.15).to_tensors("cpu").tris_packed,
-        (0, 1024 - 224))
+    mesh = outward_sphere(8, 16, 1.15).to_tensors("cpu")
+    tb = torch.nn.functional.pad(mesh.tris_packed,
+                                 (0, 1024 - mesh.tris_packed.shape[1]))
+    # The pole fans' degenerate triangles have e1 = 0, like the padding.
+    real = tb[:, (tb[3:6] != 0).any(dim=0), None]
+    n = real.shape[1]
+    assert 0 < n < mesh.num_triangles
     mask = torch.tensor([1, 0, 1], dtype=torch.int32)
     live = torch.cat([torch.arange(512), torch.arange(1024, 1536)])
     for mode in (0, 1):
-        ku, kv = trace_pallas.dense_prefilter(
-            o[:, live, None], d[:, live, None], tb[:, None, :], mode)
+        kf, ku, kv = trace_pallas.dense_prefilter(
+            o[:, live, None], d[:, live, None], real.transpose(1, 2), mode)
         t, det = trace_pallas._mt_pairs(o[:, live, None], d[:, live, None],
-                                        tb[:, None, :])
+                                        real.transpose(1, 2))
         hits = int((trace_pallas._mode_cull(t, det, mode) < MISS).sum())
         got = trace_pallas.prefilter_pairs(o, d, tb, mask, mode, chunk=300)
-        assert got == (int(ku.sum()), int(kv.sum()))
-        assert got[0] > got[1] >= hits > 0
+        assert got == (int(kf.sum()), int(ku.sum()), int(kv.sum()))
+        assert got[1] > got[2] >= hits > 0
+        if mode == 0:
+            assert got[0] == 1024 * n
+        else:
+            assert 1024 * n > got[0] > got[1]
