@@ -76,11 +76,14 @@ its training. Phases, each failing the run:
  11. time training steps (Msegments/s, synchronised, after a warm-up step)
      at 262,144 segments: the knot at 3 per ray, the sphere at 1;
  12. hold the fused MLP kernel of tcnn-layout networks (K7) against its
-     twin, every output within 2e-2 of the largest, on 131,072 segments of
-     the first march iteration of the sphere.json 1080p neural frame with
-     the weights.bin weights; time kernel, twin and a library version; then
-     at phase 14's launch shapes, the first 2^21-row chunk and the shorter
-     last chunk of the 1080p x 8 march's first iteration;
+     twin on encode_inputs' f32 rows, every output within 2e-2 of the
+     largest, on 131,072 segments of the first march iteration of the
+     sphere.json 1080p neural frame with the weights.bin weights; time the
+     wrapper, the kernel alone, its device time, the twin and a library
+     version (a bf16 cast and the torch.matmul chain) beside its bound
+     (bounds.mlp_seconds); then the same check and times at phase 14's
+     launch shapes, the first 2^21-row chunk and the shorter last chunk of
+     the 1080p x 8 march's first iteration;
  13. run `evaluate` on sphere.json at 480x270 with the config's 64 samples
      and hold it to the JAX package's gate (PSNR >= 45.5 dB, mean FLIP <=
      0.018, tests/test_golden.py:101-125);
@@ -210,6 +213,51 @@ W, H, SPP, BOUNCES = 1920, 1080, 1, 3
 
 def log(*a):
     print(*a, flush=True)
+
+
+def sphere_json_segments(dev, width, height, n_slice):
+    """configs/sphere/sphere.json's network (weights.bin) and the network
+    inputs [12, N] of the first march iteration of its width x height
+    neural frame (the camera fwd2 entry): `n_slice` live segments around
+    the middle of the 1 spp frame, and every segment of the 8 spp batch
+    (phase 14's pass). Returns (config, net, slice, live segments of the
+    1 spp frame, batch)."""
+    import torch
+    from neural_renderer_tpu_torch import config as nr_config
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    from neural_renderer_tpu_torch.render.neural_march import (
+        NeuralContext, _camera_fwd2_entry, segment_inputs)
+    from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
+                                                           Renderer)
+    from neural_renderer_tpu_torch.scene.scene import Scene
+    cfg = nr_config.load_config(os.path.join(ROOT, "configs", "sphere",
+                                             "sphere.json"))
+    rend = Renderer(Scene.from_config(cfg), cfg.neural_network, device=dev)
+    if not rend.load_weights_from_file(cfg.checkpoint_path):
+        raise AssertionError("configs/sphere/weights.bin does not load")
+    pos, yaw, pitch = nr_config.matrix_to_camera_state(cfg.camera.matrix)
+    rend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
+        yaw, pitch, cfg.camera.yfov)))
+    rend.resize(width, height)
+    rend.set_bounce_count(cfg.rendering.bounce_count)
+    ctx = NeuralContext(rend._mesh_tensors("outer_shell"),
+                        rend._mesh_tensors("inner_shell"), rend.net)
+
+    def first_iteration(spp):
+        rend.set_samples_per_pixel(spp)
+        params = rend._build_params(pos * cfg.original_mesh.scale, 0)
+        _, _, _, orig, dirs = pt.primary_rays(params)
+        entry, act, _, sw = _camera_fwd2_entry(ctx, orig, dirs)
+        return segment_inputs(ctx, params, dirs, entry, act, sw=sw)[0], act
+
+    x1, act = first_iteration(1)
+    live = torch.nonzero(act).squeeze(1)
+    first = max(0, live.numel() // 2 - n_slice // 2)
+    x_slice = x1[:, live[first:first + n_slice]].contiguous()
+    if x_slice.shape[1] != n_slice:
+        raise AssertionError(f"only {live.numel()} live camera segments")
+    del x1
+    return cfg, rend.net, x_slice, live.numel(), first_iteration(8)[0]
 
 
 def time_ms(fn, reps=10):
@@ -569,10 +617,9 @@ def main() -> int:
     # MLP alone; the rest of K2's time is its encode.
     live_rows = torch.nonzero(torch.repeat_interleave(mask2 != 0, 128)) \
         .squeeze(1)
-    rows2 = fused_network.pack_input(nbvh.encode_inputs(net,
-                                                        x_s[:, live_rows]))
-    w2h, w2o = fused_network.pack_weights(net)
-    mlp2 = time_ms(lambda: fused_network.launch(rows2, w2h, w2o))
+    rows2 = nbvh.encode_inputs(net, x_s[:, live_rows])
+    img2 = fused_network.weight_image(net)
+    mlp2 = time_ms(lambda: fused_network.launch(rows2, img2))
     log(f"[time K2 split] kernel {ms2:.4f} ms on {live2} live rows; MLP "
         f"alone (K7 on their encoded features) {mlp2:.4f} ms; encode and "
         f"the rest {ms2 - mlp2:.4f} ms")
@@ -948,29 +995,8 @@ def main() -> int:
     # ---- 12. K7 on the sphere.json network's segments ---------------------
     fm = fused_network
     sph_cfg_path = os.path.join(ROOT, "configs", "sphere", "sphere.json")
-    scfg = nr_config.load_config(sph_cfg_path)
-    srend = Renderer(Scene.from_config(scfg), scfg.neural_network,
-                     device=dev)
-    if not srend.load_weights_from_file(scfg.checkpoint_path):
-        raise AssertionError("configs/sphere/weights.bin does not load")
-    snet = srend.net
-    spos, syaw, spitch = nr_config.matrix_to_camera_state(scfg.camera.matrix)
-    srend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
-        syaw, spitch, scfg.camera.yfov)))
-    srend.resize(W, H)
-    srend.set_bounce_count(scfg.rendering.bounce_count)
-    sparams = srend._build_params(spos * scfg.original_mesh.scale, 0)
-    sctx = NeuralContext(srend._mesh_tensors("outer_shell"),
-                         srend._mesh_tensors("inner_shell"), snet)
-    _, _, _, sorig, sdirs = pt.primary_rays(sparams)
-    sentry, sact, _, ssw = _camera_fwd2_entry(sctx, sorig, sdirs)
-    s_in = segment_inputs(sctx, sparams, sdirs, sentry, sact, sw=ssw)[0]
-    live = torch.nonzero(sact).squeeze(1)
-    first = max(0, live.numel() // 2 - SLICE // 2)
-    x12 = s_in[:, live[first:first + SLICE]].contiguous()
-    if x12.shape[1] != SLICE:
-        raise AssertionError(f"only {live.numel()} live camera segments")
-    rows12 = fm.pack_input(nbvh.encode_inputs(snet, x12))
+    scfg, snet, x12, n_live, x8 = sphere_json_segments(dev, W, H, SLICE)
+    rows12 = nbvh.encode_inputs(snet, x12)
     ker7 = fm.fused_mlp(snet, rows12)
     twin7 = fm.apply_fused_twin(snet, rows12)
     torch.cuda.synchronize()
@@ -978,39 +1004,55 @@ def main() -> int:
     top7 = twin7.abs().max().item()
     err7 = d7.max().item()
     share7 = (d7 > 1e-5 * top7).any(dim=0).float().mean().item()
-    log(f"[K7 sphere.json march iteration 1] rows {SLICE} (of {live.numel()}"
+    log(f"[K7 sphere.json march iteration 1] rows {SLICE} (of {n_live}"
         f" live) max|kernel - twin| {err7!r} relative {err7 / top7!r}, share"
         f" of rows beyond 1e-5 x max {share7!r}")
     if not err7 < 2e-2 * top7:
         raise AssertionError(f"K7: relative error {err7 / top7} >= 2e-2")
-    # Kernel and library chain are timed on the same packed bf16 weights.
-    w7h, w7o = fm.pack_weights(snet)
-    ms7 = time_ms(lambda: fm.launch(rows12, w7h, w7o))
+    macs7 = snet.config.mlp_n_params
+    in7, out7 = 4 * snet.config.encoded_dims, 4 * fm.OUT_DIMS
+
+    def bound7(rows):
+        """K7's bound on `rows` rows (bounds.mlp_seconds) and what decides
+        it."""
+        b = bounds.mlp_seconds(rows, macs7, in7, out7)
+        by = ("operations" if bounds.mlp_seconds(rows, macs7, 0, 0) >= b
+              else "bytes")
+        return b, by
+
+    def time7(rows):
+        """K7 on f32 rows: the wrapper (fused_mlp) by CUDA events, the
+        kernel alone on the packed image, and the wrapper's device time."""
+        img = fm.weight_image(snet)
+        return (time_ms(lambda: fm.fused_mlp(snet, rows)),
+                time_ms(lambda: fm.launch(rows, img)),
+                device_ms(lambda: fm.fused_mlp(snet, rows), "fused_mlp"))
+
+    ms7, kms7, dms7 = time7(rows12)
     pms7 = time_ms(lambda: fm.apply_fused_twin(snet, rows12), reps=3)
+    # The library yardstick from the same f32 rows: a bf16 cast and the
+    # torch.matmul + leaky_relu chain on the bf16 weights (never called by
+    # the port).
+    wts7 = [w.detach().to(torch.bfloat16) for w in snet.mlp]
 
     def chain7():
-        h = rows12
-        for w in w7h:
+        h = rows12.to(torch.bfloat16)
+        for w in wts7[:-1]:
             h = torch.nn.functional.leaky_relu(torch.matmul(h, w.t()),
                                                nbvh.LEAKY_SLOPE)
-        return torch.matmul(h, w7o.t())
+        return torch.matmul(h, wts7[-1].t())
 
     lib7 = time_ms(chain7)
-    del s_in, sentry, sact, ssw, sorig, sdirs, ker7, twin7, d7
+    del ker7, twin7, d7
 
     # The launch shapes of phase 14's 1080p x 8 pass: its march's iteration
     # 1 runs every ray of the batch, ENC_CHUNK rows a launch plus a tail.
-    srend.set_samples_per_pixel(8)
-    p8 = srend._build_params(spos * scfg.original_mesh.scale, 0)
-    _, _, _, o8, d8 = pt.primary_rays(p8)
-    e8, a8, _, sw8 = _camera_fwd2_entry(sctx, o8, d8)
-    x8 = segment_inputs(sctx, p8, d8, e8, a8, sw=sw8)[0]
-    del o8, d8, e8, a8, sw8
     n8 = x8.shape[1]
     tail8 = n8 - (n8 - 1) // nbvh.ENC_CHUNK * nbvh.ENC_CHUNK
+    cases7 = {}
     for label, lo, hi in (("first chunk", 0, nbvh.ENC_CHUNK),
                           ("last chunk", n8 - tail8, n8)):
-        rows = fm.pack_input(nbvh.encode_inputs(snet, x8[:, lo:hi]))
+        rows = nbvh.encode_inputs(snet, x8[:, lo:hi])
         k_out = fm.fused_mlp(snet, rows)
         t_out = fm.apply_fused_twin(snet, rows)
         d = (k_out - t_out).abs()
@@ -1024,19 +1066,27 @@ def main() -> int:
             raise AssertionError(f"K7 {label}: relative error {err / top} "
                                  ">= 2e-2")
         err7 = max(err7, err)
-        del rows, k_out, t_out, d
+        del k_out, t_out, d
+        c_ms, c_kms, c_dms = time7(rows)
+        c_b, c_by = bound7(hi - lo)
+        cases7[label] = dict(rows=hi - lo, ms=c_ms, kernel_ms=c_kms,
+                             device_ms=c_dms, bound_ms=c_b * 1e3,
+                             bound_by=c_by)
+        log(f"[time K7 {label}] {hi - lo} rows: wrapper {c_ms:.4f} ms, "
+            f"kernel {c_kms:.4f} ms, device {c_dms} ms, bound "
+            f"{c_b * 1e3:.4f} ms ({c_by})")
+        del rows
     del x8
-    macs7 = snet.config.mlp_n_params
+    b7, by7 = bound7(SLICE)
     kernels["K7"] = dict(
         name="fused_mlp (tcnn-layout fused MLP)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/fused_mlp.cu",
         replaces="neural_renderer_tpu/ops/fused_network.py:41",
-        max_abs_err=err7, ms=ms7, plain_ms=pms7, ops=2 * macs7 * SLICE,
-        bytes=nbytes(rows12, w7h, w7o) + 16 * 4 * SLICE,
-        peak_ops=bounds.BF16_TENSOR, library_ms=lib7)
-    log(f"[time K7] kernel {ms7:.4f} ms, twin {pms7:.4f} ms, library "
-        f"{lib7:.4f} ms, bound "
-        f"{2 * macs7 * SLICE / bounds.BF16_TENSOR * 1e3:.4f} ms (operations)")
+        max_abs_err=err7, ms=ms7, plain_ms=pms7, bound_seconds=(b7, by7),
+        library_ms=lib7, device_ms=dms7, cases=cases7)
+    log(f"[time K7] {SLICE} rows: wrapper {ms7:.4f} ms, kernel {kms7:.4f} "
+        f"ms, device {dms7} ms, twin {pms7:.4f} ms, library {lib7:.4f} ms, "
+        f"bound {b7 * 1e3:.4f} ms ({by7}, bounds.mlp_seconds)")
     del rows12
 
     # ---- 13. evaluate on sphere.json -------------------------------------
@@ -1444,19 +1494,24 @@ def main() -> int:
                 "K4-MXU", "K5-MXU", *(k for k in kernels
                                       if k.startswith("K9"))):
         k = kernels[key]
-        t_ops = (k.pop("ops_seconds") if "ops_seconds" in k
-                 else k.pop("ops") / k.pop("peak_ops"))
-        t_bytes = k.pop("bytes") / bounds.BYTES_RATE
-        k["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        if "bound_seconds" in k:
+            # K7: bounds.mlp_seconds, and what decides it.
+            t_bound, k["bound_by"] = k.pop("bound_seconds")
+            k["bound_ms"] = t_bound * 1e3
+        else:
+            t_ops = (k.pop("ops_seconds") if "ops_seconds" in k
+                     else k.pop("ops") / k.pop("peak_ops"))
+            t_bytes = k.pop("bytes") / bounds.BYTES_RATE
+            k["bound_ms"] = max(t_ops, t_bytes) * 1e3
+            k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         k["launches"] = launches[key]
         out.append({f: k[f] for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if "cases" in k:
-            # K1, K1-MXU and the dense kernels: the device time of the
+            # K1, K1-MXU, the dense kernels and K7: the device time of the
             # wrapper's kernels, and every case's time and bound (K1's with
-            # its per-block cluster counts).
+            # its per-block cluster counts, K7's ENC_CHUNK launches).
             out[-1].update(device_ms=k["device_ms"], cases=k["cases"])
         if "mt46_seconds" in k:
             # K3, K4: bound_ms counts the pairs their prefilter leaves; this

@@ -54,6 +54,14 @@ zero, and so do loads. The counts per (ray, triangle) pair:
   (det 3, u 6, v 6, t 4), 38 flops as the tensor rates count them, on FP64
   tensor cores or, per bf16 pass, on bf16 ones.
 
+The shell networks' MLP (K2, K6, K7): 2 operations per multiply-add of
+the function on the bf16 tensor cores, layer 0 at its real inputs (the
+kernels' zero padding to 128 is their layout, not the function's work):
+`NbvhConfig.mlp_n_params`, 65,536 a row for the reference network.
+mlp_seconds counts them against the bytes K7 moves a row: its f32 input
+row (112 x 4 = 448 B) read once and its 16 f32 outputs (64 B) written
+once.
+
 CONVERSION_RATE: FP64-to-FP32 conversions, 16 per clock per SM (NVIDIA's
 arithmetic-instruction throughput table for compute capability 9.0, in
 the CUDA C++ programming documentation) x 132 SMs x 1.98 GHz. A probe on
@@ -123,3 +131,13 @@ def dense_seconds(pairs: int, facing: int, left_u: int,
     (the module docstring; `trace_pallas.prefilter_pairs` counts them)."""
     return (pairs * DENSE_DET + facing * DENSE_U + left_u * DENSE_V
             + left_v * DENSE_REST) / FP32_RATE
+
+
+def mlp_seconds(rows: int, macs: int, in_bytes: int,
+                out_bytes: int) -> float:
+    """The least time of a bf16 MLP with f32 accumulation on `rows` rows
+    of `macs` multiply-adds each, reading `in_bytes` and writing
+    `out_bytes` a row: the larger of its tensor-core operations and its
+    device-memory bytes (the module docstring)."""
+    return max(2 * macs * rows / BF16_TENSOR,
+               rows * (in_bytes + out_bytes) / BYTES_RATE)

@@ -1,8 +1,11 @@
 """Time and hold the trace kernels of one checkout of the port: the
 clustered closest hit (K5, K5-MXU) and dual-shell sweep (K1, K1-MXU), and
-the dense closest hit (K3, K8) and dual-shell sweep (K4, K4-MXU).
+the dense closest hit (K3, K8) and dual-shell sweep (K4, K4-MXU); and the
+tcnn-layout fused MLP (K7).
 
-    python scripts/compare_trace_cluster_kernels.py [TREE]
+    python scripts/compare_trace_cluster_kernels.py [TREE] [--k7]
+
+With --k7 only the K7 cases run.
 
 Imports neural_renderer_tpu_torch from TREE (default: this checkout), so
 two versions compare on one card by running it on each in turns: this
@@ -51,6 +54,18 @@ and with NR_TRACE_MXU=1 the seeded and the trained sphere frames
 scene, through K4-MXU): wall ms per frame and, over one profiled frame,
 the device ms of all kernels and of the dense ones.
 
+K7 cases, `chip_smoke.py` phase 12's (`sphere_json_segments`): the
+sphere.json network's 131,072-segment slice of its 1080p frame's first
+march iteration, and the first 2^21-row ENC_CHUNK chunk and the shorter
+last chunk of the 1080p x 8 pass's first iteration. Each is timed from
+the same f32 rows (`encode_inputs`) on both trees: a checkout with
+`pack_input` (bf16 [N, 128] rows) as `pack_input` + `launch` on weights
+packed beforehand (`K7` keys) and as `launch` on rows packed beforehand
+(`K7_kernel`); a later one as `fused_mlp` (its weight image cached) and
+as `launch` on the packed image. With the largest |kernel - twin| over
+the twin's largest |output| and, where the checkout has
+`bounds.mlp_seconds`, the bound.
+
 For each case and kernel it prints the wrapper's time per call three
 ways: `_ms`, CUDA events, best of 3 x 10 calls; `_mean_ms`, CUDA events,
 the mean of 10 calls after one, as `chip_smoke.py` times; `_device_ms`,
@@ -78,7 +93,8 @@ SLICE = 131072
 
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else here)
+    args = [a for a in sys.argv[1:] if a != "--k7"]
+    tree = os.path.abspath(args[0] if args else here)
     sys.path.insert(0, tree)
     import torch
     if not torch.cuda.is_available():
@@ -194,6 +210,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     out = {"tree": tree, "card": smi}
+    out.update(k7_cases(torch, dev, times, here))
+    if "--k7" in sys.argv:
+        print(json.dumps(out), flush=True)
+        return 0
 
     # ---- K5, K5-MXU on the knot -------------------------------------
     cfg = nr_config.load_config(os.path.join(here, "configs", "knot",
@@ -349,6 +369,67 @@ def main() -> int:
     return 0
 
 
+def chip_smoke(here):
+    """This checkout's chip_smoke.py as a module (its helpers import the
+    package lazily, so they take whichever tree's package runs)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(here, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def k7_cases(torch, dev, times, here):
+    """K7 on the cases of the module docstring: {label: {...}} with rows,
+    times, error against the twin and bound."""
+    from neural_renderer_tpu_torch.models import nbvh
+    from neural_renderer_tpu_torch.ops import bounds
+    from neural_renderer_tpu_torch.ops import fused_network as fm
+    _, net, x_slice, _, x8 = chip_smoke(here).sphere_json_segments(
+        dev, 1920, 1080, SLICE)
+    n8 = x8.shape[1]
+    tail = n8 - (n8 - 1) // nbvh.ENC_CHUNK * nbvh.ENC_CHUNK
+    cases = {"k7_slice": x_slice,
+             "k7_first_chunk": x8[:, :nbvh.ENC_CHUNK],
+             "k7_last_chunk": x8[:, n8 - tail:]}
+    res = {}
+    for label, x in cases.items():
+        enc = nbvh.encode_inputs(net, x)
+        if hasattr(fm, "pack_input"):
+            wh, wo = fm.pack_weights(net)
+            rows = fm.pack_input(enc)
+
+            def call():
+                return fm.launch(fm.pack_input(enc), wh, wo)
+
+            def kernel():
+                return fm.launch(rows, wh, wo)
+        else:
+            rows = enc
+            image = fm.weight_image(net)
+
+            def call():
+                return fm.fused_mlp(net, enc)
+
+            def kernel():
+                return fm.launch(enc, image)
+        twin = fm.apply_fused_twin(net, rows)
+        r = {"rows": int(enc.shape[0]),
+             "max_rel_err": float((call() - twin).abs().max()
+                                  / twin.abs().max())}
+        del twin
+        if hasattr(bounds, "mlp_seconds"):
+            r["bound_ms"] = bounds.mlp_seconds(
+                r["rows"], net.config.mlp_n_params, 4 * enc.shape[1],
+                4 * 16) * 1e3
+        r.update({f"K7_{k}": v for k, v in times(call).items()})
+        r.update({f"K7_kernel_{k}": v for k, v in times(kernel).items()})
+        res[label] = r
+        del enc, rows
+    return res
+
+
 TWIN_CHUNK = 32768   # rays per twin call on the many-wave cases
 # Names of the dense kernels of any checkout of the port, FP32 (K3, K4) and
 # matrix form (K8, K4-MXU, their feature pass), and of their slices' fold.
@@ -362,17 +443,13 @@ def dense_cases(torch, dev, times, trace_mxu, trace_pallas, traversal,
     {label: {...}} with each case's rays, live blocks, bound, times and
     bit-exactness to its twin, through chip_smoke.py's `dense_case` and
     `recording_dense` (this checkout's, whichever tree's package runs)."""
-    import importlib.util
     from neural_renderer_tpu_torch.render import neural_frame
     from neural_renderer_tpu_torch.render.neural_march import NeuralContext
     from neural_renderer_tpu_torch.models import nbvh
     from neural_renderer_tpu_torch.scene.envmap import EnvironmentTensors
     sys.path.insert(0, os.path.join(here, "scripts"))
     import ablate_trace_kernel_torch as ablate
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(here, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = chip_smoke(here)
     fwd = traversal.FORWARD_ONLY
     res = {}
 

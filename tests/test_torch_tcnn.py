@@ -170,8 +170,9 @@ def test_fused_twin_matches_jax(jparams):
     """The port's apply_fused on CPU tensors (encode + the K7 twin) against
     JAX apply_fused(interpret=True) and nbvh.apply(bf16) on 768 seeded
     rays with the shipped weights: within 1e-3 of the largest output. The
-    twin equals the port's own bf16 forward exactly, and nbvh.apply in
-    ENC_CHUNK chunks equals one pass. 768 rays and op-by-op JAX, as in the
+    twin on encode_inputs' [N, 112] f32 rows (fused_mlp's contract) equals
+    the port's own bf16 forward exactly, and nbvh.apply in ENC_CHUNK
+    chunks equals one pass. 768 rays and op-by-op JAX, as in the
     encode test and the 32x24 frame test, let the three share the compiled
     JAX primitives."""
     r = np.random.default_rng(3)
@@ -193,8 +194,10 @@ def test_fused_twin_matches_jax(jparams):
               f"1e-5 x max {(d > 1e-5 * top).any(axis=0).mean():.4f}")
         assert d.max() <= 1e-3 * top
     enc = nbvh.encode_inputs(net, xt)
-    twin = fused_network.apply_fused_twin(net, fused_network.pack_input(enc))
+    assert enc.dtype == torch.float32 and enc.shape == (768, 112)
+    twin = fused_network.apply_fused_twin(net, enc)
     assert torch.equal(twin, nbvh.mlp_forward(list(net.mlp), enc))
+    assert torch.equal(fused_network.fused_mlp(net, enc), twin)
     assert np.array_equal(twin.numpy(), got)
     saved = nbvh.ENC_CHUNK
     try:
