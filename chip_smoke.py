@@ -76,8 +76,11 @@ its training. Phases, each failing the run:
  11. time training steps (Msegments/s, synchronised, after a warm-up step)
      at 262,144 segments: the knot at 3 per ray, the sphere at 1;
  12. hold the fused MLP kernel of tcnn-layout networks (K7) against its
-     twin on encode_inputs' f32 rows, every output within 2e-2 of the
-     largest, on 131,072 segments of the first march iteration of the
+     twin on encode_inputs' f32 rows (K7_TOL, K7_SHARE: every channel
+     within 2e-2 of its own largest value, at most 1% of the rows beyond
+     1e-5 x the largest output; the hold must reject two planted faults,
+     and 10 calls on fresh copies must give the first call's bits), on
+     131,072 segments of the first march iteration of the
      sphere.json 1080p neural frame with the weights.bin weights; time the
      wrapper, the kernel alone, its device time, the twin and a library
      version (a bf16 cast and the torch.matmul chain) beside its bound
@@ -207,6 +210,59 @@ ABLATE_BF16 = dict(flips=0.1, median_rel=2e-2)
 # hit flips under 2e-3, ids equal on 99.9%.
 ABLATE_MXU_BF16 = dict(rtol=1e-6, atol=1e-6, share=0.99, max_rel=1e-2,
                        ids=0.999)
+
+# K7 against its twin (phase 12). Both round the same bf16 operands; the
+# tensor cores sum them in another order than cuBLAS, so a hidden
+# activation's bf16 rounding flips now and then and carries to the outputs:
+# on an H100 80GB HBM3 (700 W) 0.38-0.42% of the rows of the sphere.json
+# march differ by more than 1e-5 x the largest output, the worst by 0.35%
+# of it. Held: every channel within 2e-2 of its own largest |value| (the
+# presence logit's ~67 would otherwise hide an error of ~1 in the
+# distance, normal and colour channels, whose values are below ~6), and at
+# most 1% of the rows beyond 1e-5 x the largest output.
+K7_TOL = 2e-2
+K7_SHARE = 1e-2
+
+
+def k7_errors(got, want):
+    """K7's outputs [16, N] against its twin's: (max |got - want|, the
+    worst channel's max |got - want| over its own largest |want|, that
+    channel, the share of rows with some output beyond 1e-5 x max
+    |want|)."""
+    import torch
+    d = (got - want).abs()
+    err, top = d.amax(dim=1), want.abs().amax(dim=1)
+    rel = torch.where(top > 0, err / top,
+                      torch.where(err > 0, float("inf"), 0.0))
+    c = int(rel.argmax())
+    share = (d > 1e-5 * top.max()).any(dim=0).float().mean().item()
+    return err.max().item(), rel[c].item(), c, share
+
+
+def k7_faults(errors):
+    """Why k7_errors' readings fail phase 12's hold; empty when they hold."""
+    _, rel, c, share = errors
+    faults = []
+    if not rel <= K7_TOL:
+        faults.append(f"channel {c} off by {rel!r} of its largest value")
+    if not share <= K7_SHARE:
+        faults.append(f"{share!r} of the rows beyond 1e-5 x max")
+    return "; ".join(faults)
+
+
+def k7_planted(out, tiles_apart):
+    """Two faults planted in K7's output [16, N]: (a) one warp's 16 rows of
+    a 64-row tile taken from the same rows `tiles_apart` tiles on (what a
+    stage refilled while it is read yields: a block's tiles of one stage
+    are two grids apart), (b) every two neighbouring rows swapped."""
+    a = out.clone()
+    src = 64 * tiles_apart
+    a[:, 16:32] = out[:, src + 16:src + 32]
+    n = out.shape[1] // 2 * 2
+    b = out.clone()
+    b[:, :n] = out[:, :n].reshape(16, -1, 2).flip(2).reshape(16, n)
+    return {"stage refilled while read": a, "neighbouring rows swapped": b}
+
 
 W, H, SPP, BOUNCES = 1920, 1080, 1, 3
 
@@ -1000,15 +1056,39 @@ def main() -> int:
     ker7 = fm.fused_mlp(snet, rows12)
     twin7 = fm.apply_fused_twin(snet, rows12)
     torch.cuda.synchronize()
-    d7 = (ker7 - twin7).abs()
-    top7 = twin7.abs().max().item()
-    err7 = d7.max().item()
-    share7 = (d7 > 1e-5 * top7).any(dim=0).float().mean().item()
-    log(f"[K7 sphere.json march iteration 1] rows {SLICE} (of {n_live}"
-        f" live) max|kernel - twin| {err7!r} relative {err7 / top7!r}, share"
-        f" of rows beyond 1e-5 x max {share7!r}")
-    if not err7 < 2e-2 * top7:
-        raise AssertionError(f"K7: relative error {err7 / top7} >= 2e-2")
+
+    def hold7(label, got, want):
+        """Phase 12's hold of K7 (k7_faults); returns max |got - want|."""
+        errors = k7_errors(got, want)
+        err, rel, c, share = errors
+        log(f"[K7 {label}] rows {got.shape[1]}: max|kernel - twin| {err!r}"
+            f", worst channel {c} off by {rel!r} of its largest value, "
+            f"share of rows beyond 1e-5 x max {share!r}")
+        faults = k7_faults(errors)
+        if faults:
+            raise AssertionError(f"K7 {label}: {faults}")
+        return err
+
+    err7 = hold7(f"sphere.json march iteration 1 ({n_live} live)", ker7,
+                 twin7)
+    # The hold must reject a wrong kernel: it is shown two planted faults.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, bad in k7_planted(ker7, 2 * sms).items():
+        errors = k7_errors(bad, twin7)
+        log(f"[K7 planted fault: {label}] max|bad - twin| {errors[0]!r}, "
+            f"worst channel {errors[2]} off by {errors[1]!r} of its "
+            f"largest value, share of rows beyond 1e-5 x max {errors[3]!r}")
+        if not k7_faults(errors):
+            raise AssertionError(f"K7's hold passes a planted fault: {label}")
+    # The same bits on every call, on fresh copies of the rows (L2-hot, as
+    # encode_inputs leaves them): the fault a stage released too early
+    # leaves on some calls only.
+    differ7 = sum(not torch.equal(fm.fused_mlp(snet, rows12.clone()), ker7)
+                  for _ in range(10))
+    log(f"[K7 repeatable] {differ7} of 10 calls on fresh copies differ from "
+        "the first")
+    if differ7:
+        raise AssertionError("K7 gives other bits on some calls")
     macs7 = snet.config.mlp_n_params
     in7, out7 = 4 * snet.config.encoded_dims, 4 * fm.OUT_DIMS
 
@@ -1043,7 +1123,7 @@ def main() -> int:
         return torch.matmul(h, wts7[-1].t())
 
     lib7 = time_ms(chain7)
-    del ker7, twin7, d7
+    del ker7, twin7
 
     # The launch shapes of phase 14's 1080p x 8 pass: its march's iteration
     # 1 runs every ray of the batch, ENC_CHUNK rows a launch plus a tail.
@@ -1055,18 +1135,10 @@ def main() -> int:
         rows = nbvh.encode_inputs(snet, x8[:, lo:hi])
         k_out = fm.fused_mlp(snet, rows)
         t_out = fm.apply_fused_twin(snet, rows)
-        d = (k_out - t_out).abs()
-        top = t_out.abs().max().item()
-        err = d.max().item()
-        share = (d > 1e-5 * top).any(dim=0).float().mean().item()
-        log(f"[K7 sphere.json {W}x{H} x8 march iteration 1, {label}] rows "
-            f"{hi - lo} (of {n8}) max|kernel - twin| {err!r} relative "
-            f"{err / top!r}, share of rows beyond 1e-5 x max {share!r}")
-        if not err < 2e-2 * top:
-            raise AssertionError(f"K7 {label}: relative error {err / top} "
-                                 ">= 2e-2")
+        err = hold7(f"sphere.json {W}x{H} x8 march iteration 1, {label} "
+                    f"(of {n8})", k_out, t_out)
         err7 = max(err7, err)
-        del k_out, t_out, d
+        del k_out, t_out
         c_ms, c_kms, c_dms = time7(rows)
         c_b, c_by = bound7(hi - lo)
         cases7[label] = dict(rows=hi - lo, ms=c_ms, kernel_ms=c_kms,
@@ -1082,8 +1154,10 @@ def main() -> int:
         name="fused_mlp (tcnn-layout fused MLP)", route="cuda",
         source="neural_renderer_tpu_torch/csrc/fused_mlp.cu",
         replaces="neural_renderer_tpu/ops/fused_network.py:41",
-        max_abs_err=err7, ms=ms7, plain_ms=pms7, bound_seconds=(b7, by7),
-        library_ms=lib7, device_ms=dms7, cases=cases7)
+        max_abs_err=err7, ms=ms7, plain_ms=pms7,
+        ops_seconds=bounds.mlp_seconds(SLICE, macs7, 0, 0),
+        bytes=SLICE * (in7 + out7), library_ms=lib7, device_ms=dms7,
+        cases=cases7)
     log(f"[time K7] {SLICE} rows: wrapper {ms7:.4f} ms, kernel {kms7:.4f} "
         f"ms, device {dms7} ms, twin {pms7:.4f} ms, library {lib7:.4f} ms, "
         f"bound {b7 * 1e3:.4f} ms ({by7}, bounds.mlp_seconds)")
@@ -1494,16 +1568,11 @@ def main() -> int:
                 "K4-MXU", "K5-MXU", *(k for k in kernels
                                       if k.startswith("K9"))):
         k = kernels[key]
-        if "bound_seconds" in k:
-            # K7: bounds.mlp_seconds, and what decides it.
-            t_bound, k["bound_by"] = k.pop("bound_seconds")
-            k["bound_ms"] = t_bound * 1e3
-        else:
-            t_ops = (k.pop("ops_seconds") if "ops_seconds" in k
-                     else k.pop("ops") / k.pop("peak_ops"))
-            t_bytes = k.pop("bytes") / bounds.BYTES_RATE
-            k["bound_ms"] = max(t_ops, t_bytes) * 1e3
-            k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        t_ops = (k.pop("ops_seconds") if "ops_seconds" in k
+                 else k.pop("ops") / k.pop("peak_ops"))
+        t_bytes = k.pop("bytes") / bounds.BYTES_RATE
+        k["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         k["launches"] = launches[key]
         out.append({f: k[f] for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -126,8 +126,7 @@ def weight_image(net: nbvh.ShellNetwork):
     the same address) and compares their version counters, which every
     in-place update (an optimizer step, load_state_dict) bumps. Packing
     is about a dozen small PyTorch ops, 0.29 ms a call on an H100's host
-    against a 0.034 ms kernel on 131,072 rows
-    (scripts/fused_mlp_variants.py, PERF.md)."""
+    against a 0.034 ms kernel on 131,072 rows (PERF.md)."""
     mats = tuple(net.mlp)
     versions = tuple(m._version for m in mats)
     hit = _IMAGES.get(net)
