@@ -76,12 +76,13 @@ its training. Phases, each failing the run:
  11. time training steps (Msegments/s, synchronised, after a warm-up step)
      at 262,144 segments: the knot at 3 per ray, the sphere at 1;
  12. hold the fused MLP kernel of tcnn-layout networks (K7) against its
-     twin on encode_inputs' f32 rows (K7_TOL, K7_SHARE: every channel
-     within 2e-2 of its own largest value, at most 1% of the rows beyond
-     1e-5 x the largest output; the hold must reject two planted faults,
-     and 10 calls on fresh copies must give the first call's bits), on
-     131,072 segments of the first march iteration of the
-     sphere.json 1080p neural frame with the weights.bin weights; time the
+     twin on encode_inputs' f32 rows (K7_TOL_ALL, K7_TOL, K7_SHARE: every
+     output within 2e-2 of the largest, every channel within 1e-1 of its
+     own largest value, at most 1% of the rows beyond 1e-5 x the largest
+     output; the hold must reject two planted faults, and 10 calls on
+     fresh copies must give the first call's bits), on 131,072 segments
+     of the first march iteration of the sphere.json 1080p neural frame
+     with the weights.bin weights; time the
      wrapper, the kernel alone, its device time, the twin and a library
      version (a bf16 cast and the torch.matmul chain) beside its bound
      (bounds.mlp_seconds); then the same check and times at phase 14's
@@ -213,41 +214,78 @@ ABLATE_MXU_BF16 = dict(rtol=1e-6, atol=1e-6, share=0.99, max_rel=1e-2,
 
 # K7 against its twin (phase 12). Both round the same bf16 operands; the
 # tensor cores sum them in another order than cuBLAS, so a hidden
-# activation's bf16 rounding flips now and then and carries to the outputs:
-# on an H100 80GB HBM3 (700 W) 0.38-0.42% of the rows of the sphere.json
-# march differ by more than 1e-5 x the largest output, the worst by 0.35%
-# of it. Held: every channel within 2e-2 of its own largest |value| (the
-# presence logit's ~67 would otherwise hide an error of ~1 in the
-# distance, normal and colour channels, whose values are below ~6), and at
-# most 1% of the rows beyond 1e-5 x the largest output.
-K7_TOL = 2e-2
+# activation's bf16 rounding flips now and then and carries to the outputs.
+# Held: every output within K7_TOL_ALL of the largest (the presence logit,
+# ~67 on sphere.json); every channel within K7_TOL of its own largest
+# |value| (the logit would otherwise hide an error of ~1 in the distance,
+# normal and colour channels, whose values stay below ~6); at most
+# K7_SHARE of the rows with an output beyond 1e-5 x the largest.
+# Measured on an H100 80GB HBM3 (700 W), the sound kernel on the march's
+# slice and its two chunks: worst channel 0.042, 0.060, 0.037 of its own
+# largest value (the twin itself lies 0.022 from float64 sums on the
+# slice), 0.38-0.42% of the rows; planted faults (k7_planted): one warp's
+# rows from another tile 1.51, neighbouring rows swapped 0.39 and all the
+# rows.
+K7_TOL_ALL = 2e-2
+K7_TOL = 1e-1
 K7_SHARE = 1e-2
 
 
 def k7_errors(got, want):
-    """K7's outputs [16, N] against its twin's: (max |got - want|, the
-    worst channel's max |got - want| over its own largest |want|, that
-    channel, the share of rows with some output beyond 1e-5 x max
-    |want|)."""
+    """K7's outputs [16, N] against its twin's: max |got - want| ("err")
+    and its share of max |want| ("rel_all"), the worst channel ("channel")
+    and its max |got - want| over its own largest |want| ("rel"), and the
+    share of rows with an output beyond 1e-5 x max |want| ("share")."""
     import torch
     d = (got - want).abs()
     err, top = d.amax(dim=1), want.abs().amax(dim=1)
     rel = torch.where(top > 0, err / top,
                       torch.where(err > 0, float("inf"), 0.0))
     c = int(rel.argmax())
-    share = (d > 1e-5 * top.max()).any(dim=0).float().mean().item()
-    return err.max().item(), rel[c].item(), c, share
+    e_all, top_all = err.max().item(), top.max().item()
+    return dict(err=e_all, rel_all=(e_all / top_all if top_all > 0 else
+                                    float("inf") if e_all > 0 else 0.0),
+                channel=c, rel=rel[c].item(),
+                share=(d > 1e-5 * top_all).any(dim=0).float().mean().item())
 
 
-def k7_faults(errors):
-    """Why k7_errors' readings fail phase 12's hold; empty when they hold."""
-    _, rel, c, share = errors
+def k7_faults(e):
+    """Why k7_errors' readings `e` fail phase 12's hold; empty when they
+    hold."""
     faults = []
-    if not rel <= K7_TOL:
-        faults.append(f"channel {c} off by {rel!r} of its largest value")
-    if not share <= K7_SHARE:
-        faults.append(f"{share!r} of the rows beyond 1e-5 x max")
+    if not e["rel_all"] <= K7_TOL_ALL:
+        faults.append(f"off by {e['rel_all']!r} of the largest output")
+    if not e["rel"] <= K7_TOL:
+        faults.append(f"channel {e['channel']} off by {e['rel']!r} of its "
+                      "largest value")
+    if not e["share"] <= K7_SHARE:
+        faults.append(f"{e['share']!r} of the rows beyond 1e-5 x max")
     return "; ".join(faults)
+
+
+def k7_log(e):
+    """k7_errors' readings as phase 12 logs them."""
+    return (f"max|kernel - twin| {e['err']!r} ({e['rel_all']!r} of the "
+            f"largest output), worst channel {e['channel']} off by "
+            f"{e['rel']!r} of its largest value, share of rows beyond 1e-5 x "
+            f"max {e['share']!r}")
+
+
+def k7_summed(net, rows):
+    """K7's function on `rows` [N, 112] with every product summed in
+    float64 (the twin's bf16 operands and roundings, another summation
+    order): [16, N] f32."""
+    import torch
+    from neural_renderer_tpu_torch.models import nbvh
+
+    def bf16(v):
+        return v.detach().to(torch.bfloat16).double()
+
+    h = bf16(rows)
+    for w in net.mlp[:-1]:
+        h = bf16(torch.nn.functional.leaky_relu((h @ bf16(w).t()).float(),
+                                                nbvh.LEAKY_SLOPE))
+    return (h @ bf16(net.mlp[-1]).t()).float().t()
 
 
 def k7_planted(out, tiles_apart):
@@ -1057,29 +1095,34 @@ def main() -> int:
     twin7 = fm.apply_fused_twin(snet, rows12)
     torch.cuda.synchronize()
 
+    faults7 = []
+
     def hold7(label, got, want):
-        """Phase 12's hold of K7 (k7_faults); returns max |got - want|."""
-        errors = k7_errors(got, want)
-        err, rel, c, share = errors
-        log(f"[K7 {label}] rows {got.shape[1]}: max|kernel - twin| {err!r}"
-            f", worst channel {c} off by {rel!r} of its largest value, "
-            f"share of rows beyond 1e-5 x max {share!r}")
-        faults = k7_faults(errors)
-        if faults:
-            raise AssertionError(f"K7 {label}: {faults}")
-        return err
+        """Phase 12's hold of K7 (k7_faults, failing the phase at its end);
+        returns max |got - want|."""
+        e = k7_errors(got, want)
+        each = (got - want).abs().amax(dim=1) / want.abs().amax(dim=1)
+        log(f"[K7 {label}] rows {got.shape[1]}: {k7_log(e)}; each channel "
+            f"{[float(f'{v:.3g}') for v in each.tolist()]}")
+        if k7_faults(e):
+            faults7.append(f"K7 {label}: {k7_faults(e)}")
+        return e["err"]
 
     err7 = hold7(f"sphere.json march iteration 1 ({n_live} live)", ker7,
                  twin7)
+    # How far the twin itself lies from float64 sums, beside the kernel.
+    sum7 = k7_summed(snet, rows12)
+    for label, got in (("twin", twin7), ("kernel", ker7)):
+        log(f"[K7 {label} against float64 sums] "
+            f"{k7_log(k7_errors(got, sum7))}")
+    del sum7
     # The hold must reject a wrong kernel: it is shown two planted faults.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, bad in k7_planted(ker7, 2 * sms).items():
-        errors = k7_errors(bad, twin7)
-        log(f"[K7 planted fault: {label}] max|bad - twin| {errors[0]!r}, "
-            f"worst channel {errors[2]} off by {errors[1]!r} of its "
-            f"largest value, share of rows beyond 1e-5 x max {errors[3]!r}")
-        if not k7_faults(errors):
-            raise AssertionError(f"K7's hold passes a planted fault: {label}")
+        e = k7_errors(bad, twin7)
+        log(f"[K7 planted fault: {label}] {k7_log(e)}")
+        if not k7_faults(e):
+            faults7.append(f"K7's hold passes a planted fault: {label}")
     # The same bits on every call, on fresh copies of the rows (L2-hot, as
     # encode_inputs leaves them): the fault a stage released too early
     # leaves on some calls only.
@@ -1088,7 +1131,7 @@ def main() -> int:
     log(f"[K7 repeatable] {differ7} of 10 calls on fresh copies differ from "
         "the first")
     if differ7:
-        raise AssertionError("K7 gives other bits on some calls")
+        faults7.append("K7 gives other bits on some calls")
     macs7 = snet.config.mlp_n_params
     in7, out7 = 4 * snet.config.encoded_dims, 4 * fm.OUT_DIMS
 
@@ -1149,6 +1192,8 @@ def main() -> int:
             f"{c_b * 1e3:.4f} ms ({c_by})")
         del rows
     del x8
+    if faults7:
+        raise AssertionError("; ".join(faults7))
     b7, by7 = bound7(SLICE)
     kernels["K7"] = dict(
         name="fused_mlp (tcnn-layout fused MLP)", route="cuda",

@@ -50,15 +50,16 @@
 //   rows of 64 bytes at stride 448 = 16 banks apart, all 32 banks, no
 //   conflict. The order is a permutation of the k sum and changes no
 //   product.
-// - Output: each warpgroup stages its 64 x 16 tile channel-major in shared
-//   memory (rows 68 floats apart, so the fragments' stores hit 32
-//   distinct banks), then writes each channel's 64 rows as 256 coalesced
-//   bytes, in 16-byte stores when every channel row is 16-byte aligned
-//   (N % 4 == 0), else in 4-byte ones.
+// - Output: stored directly, not staged in shared memory: each store
+//   instruction of a warp writes four whole 32-byte sectors (8
+//   consecutive rows of 4 channels), so device memory sees the bytes a
+//   staged 256-byte row would write. On an H100 (PERF.md) a version that
+//   staged each warpgroup's 64 x 16 tile and wrote 256-byte channel rows
+//   in 16-byte stores ran within the direct stores' spread, at 131,072
+//   and at 2^21 rows.
 //
-// Shared memory: 135,168 weights + 2 x 28,672 stages + 2 x 4,352 output
-// staging + 9 barriers + 1 KB to align the image to the 1024-byte swizzle
-// atom = 202,312 bytes.
+// Shared memory: 135,168 weights + 2 x 28,672 stages + 9 barriers + 1 KB
+// to align the image to the 1024-byte swizzle atom = 193,608 bytes.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -77,11 +78,9 @@
 #define FM_IMAGE_BYTES (FM_OUT_OFFSET + FM_OUT * 128 * 2)   // 135,168
 #define FM_ROW_BYTES (FM_IN * 4)
 #define FM_STAGE_BYTES (FM_TILE * FM_ROW_BYTES)             // 28,672
-#define FM_OST_STRIDE 68             // floats between staged channels
-#define FM_OST_BYTES (FM_OUT * FM_OST_STRIDE * 4)           // 4,352
 #define FM_BARRIERS (2 * FM_CONSUMERS + 5)  // full[], empty[], 5 matrices
 #define FM_SMEM (1024 + FM_IMAGE_BYTES + FM_CONSUMERS * FM_STAGE_BYTES + \
-                 FM_CONSUMERS * FM_OST_BYTES + FM_BARRIERS * 8)
+                 FM_BARRIERS * 8)
 
 __device__ __forceinline__ uint32_t fm_smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -144,10 +143,6 @@ __device__ __forceinline__ void fm_bar_sync(uint32_t id) {
 }
 __device__ __forceinline__ void fm_bar_arrive(uint32_t id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-// Named barriers FM_CONSUMERS + 1 + wg: warpgroup wg's 128 threads alone.
-__device__ __forceinline__ void fm_bar_group(uint32_t id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // Shared-memory descriptor of a K-major bf16 B operand in the 128-byte
@@ -243,10 +238,7 @@ fused_mlp_kernel(const float* __restrict__ x, int n,
   const float* stages =
       reinterpret_cast<const float*>(smem + FM_IMAGE_BYTES);
   const uint32_t s_stages = s_image + FM_IMAGE_BYTES;
-  float* ostages = reinterpret_cast<float*>(
-      smem + FM_IMAGE_BYTES + FM_CONSUMERS * FM_STAGE_BYTES);
-  const uint32_t s_bar = s_stages + FM_CONSUMERS * FM_STAGE_BYTES +
-                         FM_CONSUMERS * FM_OST_BYTES;
+  const uint32_t s_bar = s_stages + FM_CONSUMERS * FM_STAGE_BYTES;
   // full[s] at s_bar + 8 s, empty[s] after them, then one a matrix.
   const uint32_t s_empty = s_bar + 8 * FM_CONSUMERS;
   const uint32_t s_wbar = s_empty + 8 * FM_CONSUMERS;
@@ -300,7 +292,6 @@ fused_mlp_kernel(const float* __restrict__ x, int n,
   const uint32_t my_turn = 1 + wg;
   const uint32_t their_turn = 1 + (wg + 1) % FM_CONSUMERS;
   const float* stage = stages + wg * (FM_TILE * FM_IN);
-  float* ost = ostages + wg * (FM_OUT * FM_OST_STRIDE);
   // Every warpgroup takes turns for ceil(my_tiles / FM_CONSUMERS) tiles;
   // one short of them, a warpgroup only passes its last turns on.
   const int rounds = (my_tiles + FM_CONSUMERS - 1) / FM_CONSUMERS;
@@ -381,32 +372,16 @@ fused_mlp_kernel(const float* __restrict__ x, int n,
     fm_wgmma_wait();
 #pragma unroll
     for (int q = 0; q < 8; ++q) fm_fence_operand(o[q]);
-    // Stage the tile channel-major (the warpgroup's previous reads of the
-    // staging ended before its last turn's bar.sync), then write each
-    // channel's rows.
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
-      const int c = nb * 8 + 2 * t;
-      ost[c * FM_OST_STRIDE + r_lo] = o[4 * nb];
-      ost[(c + 1) * FM_OST_STRIDE + r_lo] = o[4 * nb + 1];
-      ost[c * FM_OST_STRIDE + r_hi] = o[4 * nb + 2];
-      ost[(c + 1) * FM_OST_STRIDE + r_hi] = o[4 * nb + 3];
-    }
-    fm_bar_group(FM_CONSUMERS + 1 + wg);
-    if ((n & 3) == 0) {  // rows (n - row0) is a multiple of 4 too
-#pragma unroll
-      for (int it = 0; it < FM_OUT * FM_TILE / 4 / 128; ++it) {
-        const int idx = it * 128 + tid, c = idx / 16, r = 4 * (idx % 16);
-        if (r < rows)
-          *reinterpret_cast<float4*>(out + (long long)c * n + row0 + r) =
-              *reinterpret_cast<const float4*>(ost + c * FM_OST_STRIDE + r);
+      const long long c = nb * 8 + 2 * t;
+      if (r_lo < rows) {
+        out[c * n + row0 + r_lo] = o[4 * nb];
+        out[(c + 1) * n + row0 + r_lo] = o[4 * nb + 1];
       }
-    } else {
-#pragma unroll
-      for (int it = 0; it < FM_OUT * FM_TILE / 128; ++it) {
-        const int idx = it * 128 + tid, c = idx / FM_TILE, r = idx % FM_TILE;
-        if (r < rows)
-          out[(long long)c * n + row0 + r] = ost[c * FM_OST_STRIDE + r];
+      if (r_hi < rows) {
+        out[c * n + row0 + r_hi] = o[4 * nb + 2];
+        out[(c + 1) * n + row0 + r_hi] = o[4 * nb + 3];
       }
     }
   }

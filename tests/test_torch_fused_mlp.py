@@ -146,24 +146,19 @@ def test_wrapper_contract(net):
 def test_k7_hold_rejects_planted_faults(net):
     """chip_smoke.py's hold of K7 against its twin (k7_errors, k7_faults)
     passes the same MLP summed in float64 (another summation order, as
-    the tensor cores take) and rejects both faults k7_planted plants: a
-    warp's rows from another tile, neighbouring rows swapped."""
+    the tensor cores take) and rejects both faults k7_planted plants (a
+    warp's rows from another tile, neighbouring rows swapped), an error in
+    a channel that is all zeros, and one beyond 2e-2 of the largest output
+    that is small beside its own channel's."""
     import chip_smoke
     x = torch.rand((12, 1024), generator=torch.Generator().manual_seed(4))
     enc = nbvh.encode_inputs(net, x)
     twin = fm.apply_fused_twin(net, enc)
-
-    def bf16(v):
-        return v.to(torch.bfloat16).double()
-
-    h = bf16(enc)
-    for w in net.mlp[:-1]:
-        h = bf16(torch.nn.functional.leaky_relu(
-            (h @ bf16(w.detach()).t()).float(), nbvh.LEAKY_SLOPE))
-    other = (h @ bf16(net.mlp[-1].detach()).t()).float().t()
+    other = chip_smoke.k7_summed(net, enc)
     assert not torch.equal(other, twin)
-    errors = chip_smoke.k7_errors(other, twin)
-    assert chip_smoke.k7_faults(errors) == "", errors
+    e = chip_smoke.k7_errors(other, twin)
+    assert chip_smoke.k7_faults(e) == "", e
+    assert e["rel"] < 1e-2 and e["share"] < 1e-2
     for label, bad in chip_smoke.k7_planted(other, 4).items():
         assert chip_smoke.k7_faults(chip_smoke.k7_errors(bad, twin)), label
     zero = torch.zeros_like(twin)
@@ -171,3 +166,9 @@ def test_k7_hold_rejects_planted_faults(net):
     zero[3, 7] = 1e-30
     assert "channel 3" in chip_smoke.k7_faults(
         chip_smoke.k7_errors(zero, torch.zeros_like(twin)))
+    big = torch.zeros_like(twin)
+    big[0, 0], big[1, 0] = 100.0, 50.0
+    off = big.clone()
+    off[1, 0] += 3.0
+    assert chip_smoke.k7_faults(chip_smoke.k7_errors(off, big)) == \
+        "off by 0.03 of the largest output"
