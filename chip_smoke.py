@@ -265,7 +265,7 @@ def k7_faults(e):
 
 def k7_log(e):
     """k7_errors' readings as phase 12 logs them."""
-    return (f"max|kernel - twin| {e['err']!r} ({e['rel_all']!r} of the "
+    return (f"max difference {e['err']!r} ({e['rel_all']!r} of the "
             f"largest output), worst channel {e['channel']} off by "
             f"{e['rel']!r} of its largest value, share of rows beyond 1e-5 x "
             f"max {e['share']!r}")
