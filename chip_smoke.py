@@ -141,7 +141,31 @@ its training. Phases, each failing the run:
  21. run `evaluate` on the shipped lane sphere (configs/sphere/
      sphere_lane.json) at 480x270 x 64 and hold it to 1 dB under the JAX
      record (PSNR >= 50.54 dB, mean FLIP <= 0.018); then run bench_torch.py
-     (BENCH_SKIP_CPU=1) and check its last line has bench.py's keys.
+     (BENCH_SKIP_CPU=1) and check its last line has bench.py's keys;
+ 22. the studio scene (configs/studio/studio_lane.json: the PIZ EXR sky,
+     the textured, normal-mapped glTF torus of 2,304 triangles, shells of
+     800 + 800 triangles, the 398-triangle additional mesh extra.obj, the
+     trained lane grid lane_step12000.npz): (a) load it through
+     Scene.from_config (a valid 256x128 sky, textures and normal maps on
+     the ground-truth mesh); (b) hold at its launch shapes the dense sweep
+     (K4) bit-exact to its twin on 131,072 camera rays against the shells
+     with and without the second forward crossing, the dense closest hit
+     (K3) bit-exact in t and ids on the torus (FORWARD_ONLY, the slice and
+     its first live 512-ray block alone) and on extra.obj's first bounce
+     rays (ANY), and the network (K2) within 2e-2 on the first march
+     iteration; time kernels and twins beside their bounds
+     (bounds.dense_seconds for K3, K4); (c) render 480x270 through the
+     kernels and through the twins on the card, the hybrid neural frame
+     and the ground-truth frame, held to phase 3's bounds; (d) run
+     `evaluate --no-additional` at 480x270 with the config's 64 samples
+     and hold it to the JAX package's gate for this scene (PSNR >= 23.5
+     dB, mean FLIP <= 0.065, tests/test_golden.py:150-174), counters at 0
+     first: K3 must launch in the ground-truth pass, K4 and K2 in the
+     neural pass, K1 and K5 in neither; (e) run the full hybrid `evaluate`
+     at the same size (no gate: the ground truth never traces the
+     additional mesh), K3 launching in its neural pass; (f) run it at
+     1920x1080 with 8 samples in one batch and log each pass's Mrays/s and
+     peak memory.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -1608,6 +1632,11 @@ def main() -> int:
                              f"{bench.stderr[-500:]}")
     log(f"[phase 21] {time.perf_counter() - t21:.1f} s")
 
+    # ---- 22. the studio scene ---------------------------------------------
+    t22 = time.perf_counter()
+    studio_phase(kernels, smi)
+    log(f"[phase 22] {time.perf_counter() - t22:.1f} s")
+
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
                 "K4-MXU", "K5-MXU", *(k for k in kernels
@@ -1637,6 +1666,9 @@ def main() -> int:
             # one the block rule's, the TPU kernel's walk.
             out[-1]["block_rule_bound_ms"] = max(
                 k.pop("block_ops_seconds"), t_bytes) * 1e3
+        if "studio" in k:
+            # K2, K3, K4 at the studio scene's launch shapes (phase 22).
+            out[-1]["studio"] = k["studio"]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": out}))
@@ -1644,6 +1676,267 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+STUDIO_GATE = dict(psnr=23.5, flip=0.065)   # tests/test_golden.py:150-174
+
+
+def studio_case(fn, twin, operands, mode, real_tris, rows):
+    """dense_case of a K3 or K4 launch of the studio scene, with the
+    twin's time, the bytes the call moves (rays, skip flags and triangles
+    read once, `rows` f32 rows a ray written once) and the bound the
+    larger of the prefilter's operations and those bytes."""
+    from neural_renderer_tpu_torch.ops import bounds
+    case = dense_case(fn, twin, operands, mode, real_tris, smoke_times,
+                      fp32=True)
+    case["plain_ms"] = time_ms(twin, reps=3)
+    o, d, _, mask = operands
+    t_bytes = (nbytes(o, d, mask) + 9 * 4 * real_tris
+               + rows * 4 * o.shape[1]) / bounds.BYTES_RATE * 1e3
+    case["ops_bound_ms"] = case["bound_ms"]
+    case["bound_by"] = "operations" if case["bound_ms"] >= t_bytes \
+        else "bytes"
+    case["bound_ms"] = max(case["bound_ms"], t_bytes)
+    return case
+
+
+@contextlib.contextmanager
+def pass_launches(counters):
+    """Record, for each Renderer.render_accumulate call made in the block
+    (one `evaluate` pass), the launches each counter took during it: yields
+    a dict "gt" / "neural" -> {kernel: launches}."""
+    from neural_renderer_tpu_torch.render.renderer import Renderer
+    real = Renderer.render_accumulate
+    passes = {}
+
+    def counted(self, *a, **kw):
+        before = {k: f.launches for k, f in counters.items()}
+        try:
+            return real(self, *a, **kw)
+        finally:
+            passes["neural" if self.use_neural_query else "gt"] = {
+                k: f.launches - before[k] for k, f in counters.items()}
+
+    Renderer.render_accumulate = counted
+    try:
+        yield passes
+    finally:
+        Renderer.render_accumulate = real
+
+
+def studio_phase(kernels, smi, dev="cuda"):
+    """Phase 22: the studio scene (see the module docstring)."""
+    import torch
+    from neural_renderer_tpu_torch import config as nr_config
+    from neural_renderer_tpu_torch.cli import evaluate
+    from neural_renderer_tpu_torch.ops import (bounds, lane_grid_kernel,
+                                               trace_cluster, trace_pallas,
+                                               traversal)
+    from neural_renderer_tpu_torch.render import neural_frame
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    from neural_renderer_tpu_torch.render.neural_march import (
+        NeuralContext, _camera_fwd2_entry, segment_inputs)
+    from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
+                                                           Renderer)
+    from neural_renderer_tpu_torch.scene.scene import Scene
+    dev = torch.device(dev)
+    cfg_path = os.path.join(ROOT, "configs", "studio", "studio_lane.json")
+    cfg = nr_config.load_config(cfg_path)
+
+    # (a) the scene
+    t0 = time.perf_counter()
+    scene = Scene.from_config(cfg)
+    rend = Renderer(scene, cfg.neural_network, device=dev)
+    if not rend.load_weights_from_file(cfg.checkpoint_path):
+        raise AssertionError("the studio weights do not load")
+    gt_mesh = rend._mesh_tensors("original_mesh")
+    outer = rend._mesh_tensors("outer_shell")
+    inner = rend._mesh_tensors("inner_shell")
+    extra = rend._mesh_tensors("additional_mesh")
+    env = rend._env_tensors()
+    log(f"[studio] loaded in {time.perf_counter() - t0:.2f} s: sky "
+        f"{env.width}x{env.height} valid {env.is_valid}, torus "
+        f"{gt_mesh.num_triangles} triangles (textures "
+        f"{gt_mesh.has_textures}, normal maps {gt_mesh.has_normal_maps}), "
+        f"shells {outer.num_triangles} + {inner.num_triangles}, extra "
+        f"{extra.num_triangles}")
+    if not ((env.width, env.height, env.is_valid) == (256, 128, True)
+            and scene.environment_error is None and not scene.failed_meshes
+            and gt_mesh.has_textures and gt_mesh.has_normal_maps):
+        raise AssertionError("the studio scene did not load whole")
+    pos, yaw, pitch = nr_config.matrix_to_camera_state(cfg.camera.matrix)
+    rend.set_camera_basis(RenderBasis(*nr_config.camera_basis_from_state(
+        yaw, pitch, cfg.camera.yfov)))
+    rend.set_bounce_count(cfg.rendering.bounce_count)
+    rend.resize(W, H)
+    params = rend._build_params(pos, 0)
+    pix, samp, _, origins, dirs = pt.primary_rays(params)
+
+    # (b) K4, K3 and K2 at the scene's launch shapes
+    inside = torch.nonzero(trace_cluster.mesh_exit_t(
+        origins, dirs, outer.cluster_bounds, None) > 0).squeeze(1)
+    start = max(0, min(origins.shape[1] - SLICE,
+                       int(inside[inside.numel() // 2]) - SLICE // 2))
+    start -= start % 512
+    o_s = origins[:, start:start + SLICE].contiguous()
+    d_s = dirs[:, start:start + SLICE].contiguous()
+    ops4 = traversal.dense_sweep_operands(outer, inner, o_s, d_s)
+    o4, d4, tp4, cols4, bm4 = ops4
+    real4 = outer.num_triangles + inner.num_triangles
+    cases4 = {}
+    for fwd2 in (True, False):
+        cases4[f"camera fwd2={fwd2}"] = studio_case(
+            lambda: trace_pallas.sweep_shells_dense(o4, d4, tp4, cols4,
+                                                    fwd2, bm4),
+            lambda: trace_pallas.sweep_shells_dense_twin(o4, d4, tp4, cols4,
+                                                         fwd2, bm4),
+            (o4, d4, tp4, bm4), 0, real4, 5 if fwd2 else 4)
+    log(f"[studio K4 camera sweep] rays {SLICE}, live blocks "
+        f"{int(bm4.sum())} of {bm4.numel()}: {cases4}")
+    if not all(c["exact"] for c in cases4.values()):
+        raise AssertionError("studio K4: kernel != twin")
+
+    fwd, anym = traversal.FORWARD_ONLY, traversal.ANY
+
+    def k3_case(mesh, o, d, mode, active=None):
+        o3, d3, tp3, bm3 = traversal.dense_trace_operands(mesh, o, d,
+                                                          active)
+        return (o3, d3, tp3, bm3), studio_case(
+            lambda: trace_pallas.trace_dense(o3, d3, tp3, mode, bm3),
+            lambda: trace_pallas.trace_dense_twin(o3, d3, tp3, mode, bm3),
+            (o3, d3, tp3, bm3), mode, mesh.num_triangles, 2)
+
+    torus_ops, torus = k3_case(gt_mesh, o_s, d_s, fwd)
+    block = first_live_block(torus_ops[0], torus_ops[1], torus_ops[3])
+    _, torus_block = k3_case(gt_mesh, block[0], block[1], fwd)
+    # extra.obj's first bounce rays: the hybrid camera hits (the march
+    # merged with extra.obj's FORWARD_ONLY hits), sampled, the active ones
+    # in the bounce stage's compaction order.
+    ctx = NeuralContext(outer, inner, rend.net)
+    hits = neural_frame.trace_neural_segments(ctx, params, origins, dirs)
+    hits = pt.select_closest_hits(params, hits, pt.trace_rays_mesh(
+        extra, params, origins, dirs, fwd), origins)
+    rays = pt.sample_bounce_directions(params, pix, samp, hits, hits.hit,
+                                       None)
+    act = torch.nonzero(hits.hit & (rays.pdf > 0)).squeeze(1)
+    order = traversal._ray_sort_order(rays.origin[:, act],
+                                      rays.direction[:, act])
+    sel = act[order][:SLICE]
+    _, bounce = k3_case(extra, rays.origin[:, sel].contiguous(),
+                        rays.direction[:, sel].contiguous(), anym)
+    cases3 = {"torus FORWARD_ONLY": torus,
+              "torus first live block": torus_block,
+              "extra.obj bounce 1 ANY": bounce}
+    log(f"[studio K3] {cases3}")
+    if not all(c["exact"] for c in cases3.values()):
+        raise AssertionError("studio K3: kernel != twin")
+
+    entry_pos, active, _, sw1 = _camera_fwd2_entry(ctx, origins, dirs)
+    net_in = segment_inputs(ctx, params, dirs, entry_pos, active, sw=sw1)[0]
+    x_s = net_in[:, start:start + SLICE].contiguous()
+    a_s = active[start:start + SLICE]
+    mask2 = lane_grid_kernel._block_mask(a_s, SLICE, dev)
+    ker2 = lane_grid_kernel.forward_lane(rend.net, x_s, active=a_s)
+    twin2 = lane_grid_kernel.forward_lane_twin(rend.net, x_s, mask2)
+    rel2 = ((ker2 - twin2).abs().max() / twin2.abs().max()).item()
+    case2 = dict(
+        rays=SLICE, live=int(mask2.sum()) * 128, max_rel_err=rel2,
+        ms=time_ms(lambda: lane_grid_kernel.forward_lane(rend.net, x_s,
+                                                         active=a_s)),
+        plain_ms=time_ms(lambda: lane_grid_kernel.forward_lane_twin(
+            rend.net, x_s, mask2), reps=3))
+    # Bound as phase 2's K2: the MLP's multiply-adds on the live rows, or
+    # the rows, tables and weights read and the outputs written.
+    ops2 = lane_grid_kernel._operands(rend.net)
+    t_ops = 2 * rend.net_config.mlp_n_params * case2["live"] \
+        / bounds.BF16_TENSOR
+    t_bytes = (nbytes(x_s, mask2, ops2.tables, ops2.w_hidden, ops2.w_out)
+               + 16 * 4 * SLICE) / bounds.BYTES_RATE
+    case2.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"[studio K2 march iteration 1] {case2}")
+    if not rel2 < 2e-2:
+        raise AssertionError(f"studio K2: relative error {rel2} >= 2e-2")
+    del hits, rays, net_in, ker2, twin2
+
+    # (c) 480x270 frames, kernels against twins on the card
+    rend.resize(480, 270)
+    frames = {}
+    for label, neural in (("ground truth", False), ("hybrid neural", True)):
+        rend.set_use_neural_query(neural)
+        img_k = rend.render_accumulate(pos, 2, batch_spp=1)
+        with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                       traversal):
+            img_t = rend.render_accumulate(pos, 2, batch_spp=1)
+        diff = abs(img_k.astype(int) - img_t.astype(int))
+        frames[label] = dict(share_above_3=float((diff > 3).mean()),
+                             mean=float(diff.mean()), max=int(diff.max()),
+                             mean_u8=float(img_k.mean()))
+        if not (frames[label]["share_above_3"] < 0.02
+                and frames[label]["mean"] < 1.0 and img_k.std() > 1.0):
+            raise AssertionError(f"studio {label} kernel frame differs "
+                                 "from the twin frame")
+    log(f"[studio 480x270 kernels vs twins] {frames}")
+
+    # (d) the JAX gate without the additional mesh, (e) the hybrid run
+    counters = {
+        "K1": trace_cluster.sweep_clusters_stream,
+        "K2": lane_grid_kernel.forward_lane, "K3": trace_pallas.trace_dense,
+        "K4": trace_pallas.sweep_shells_dense,
+        "K5": trace_cluster.trace_clusters_stream}
+    out_dir = os.path.join(ROOT, "comparison_output", "smoke_studio")
+    studio = {}
+    for label, extra_args in (("no additional", ["--no-additional"]),
+                              ("hybrid", [])):
+        for f in counters.values():
+            f.launches = 0
+        with pass_launches(counters) as passes:
+            text = run_evaluate(evaluate, [
+                cfg_path, "--width", "480", "--height", "270", "--output",
+                f"{out_dir}_{label.replace(' ', '_')}", *extra_args])
+        psnr, flip = parse_metrics(text)
+        studio[label] = dict(psnr=psnr, flip=flip, launches=passes)
+        log(f"[evaluate studio {label} 480x270 x"
+            f"{cfg.rendering.total_samples}] PSNR {psnr!r} dB, FLIP "
+            f"{flip!r}, launches per pass {passes}")
+    gate = studio["no additional"]
+    if not (gate["psnr"] >= STUDIO_GATE["psnr"]
+            and gate["flip"] <= STUDIO_GATE["flip"]):
+        raise AssertionError(f"studio evaluate misses the quality gate "
+                             f"{STUDIO_GATE}")
+    for label in studio:
+        p = studio[label]["launches"]
+        if set(p) != {"gt", "neural"} or any(
+                p[s][k] != 0 for s in p for k in ("K1", "K5")):
+            raise AssertionError(f"studio {label}: a clustered kernel "
+                                 f"launched or a pass is missing: {p}")
+    p = gate["launches"]
+    if not (p["gt"]["K3"] > 0 and p["neural"]["K4"] > 0
+            and p["neural"]["K2"] > 0):
+        raise AssertionError(f"studio evaluate did not run through K3, K4 "
+                             f"and K2: {p}")
+    if not studio["hybrid"]["launches"]["neural"]["K3"] > 0:
+        raise AssertionError("the hybrid neural pass never launched K3")
+
+    # (f) 1080p x 8 in one batch
+    text = run_evaluate(evaluate, [
+        cfg_path, "--width", str(W), "--height", str(H), "--total-samples",
+        "8", "--batch-spp", "8", "--output", f"{out_dir}_1080p"])
+    rates = re.findall(r"(Ground truth|Neural): ([0-9.]+) Mrays/s", text)
+    peaks = re.findall(r"(Ground truth|Neural): peak device memory (\d+) "
+                       r"MiB", text)
+    psnr8, flip8 = parse_metrics(text)
+    log(f"[evaluate studio hybrid {W}x{H} x8, one batch of 8 spp] "
+        f"Mrays/s {rates}, peak MiB {peaks}, PSNR {psnr8!r} dB, FLIP "
+        f"{flip8!r} ({smi})")
+    if len(rates) != 2 or len(peaks) != 2 * (dev.type == "cuda"):
+        raise AssertionError("the 1080p studio evaluate printed no speed")
+
+    kernels["K4"]["studio"] = dict(cases4, launches=gate["launches"])
+    kernels["K3"]["studio"] = dict(cases3, launches={
+        k: v["launches"] for k, v in studio.items()})
+    kernels["K2"]["studio"] = dict(march_iteration_1=case2,
+                                   launches=gate["launches"])
 
 
 def k5_items(label, trace_cluster, bounds, args, mode, t, tri, swept, ms,

@@ -82,6 +82,10 @@ def main(argv=None) -> int:
         print("evaluate: could not load: " + ", ".join(failed),
               file=sys.stderr)
         return 1
+    if scene.environment_error is not None:
+        print("evaluate: could not load the environment map: "
+              + scene.environment_error, file=sys.stderr)
+        return 1
     if scene.original_mesh.num_triangles == 0 \
             or scene.outer_shell.num_triangles == 0:
         print("evaluate: the config must name an original mesh and an outer "

@@ -101,8 +101,11 @@ def mesh_from_numpy(tris_packed: np.ndarray, num_triangles: int,
     `tris_packed` [9, T] and `num_triangles` suffice for the shell traces;
     `fields` may add what the ground-truth path reads, under MeshArrays'
     names and layouts: vertices [3, V], normals, uvs [2, V], indices [3, T],
-    tri_material [T], nodes_packed [11, N], mat_scalars [NUM_SCALARS, M] and
-    the flags has_normals, has_uvs, has_materials, max_leaf."""
+    tri_material [T], nodes_packed [11, N], mat_scalars [NUM_SCALARS, M],
+    mat_tex_ids and mat_tex_chans [NUM_TEX_SLOTS, M], atlas [3, P],
+    tex_offset, tex_width, tex_height [Ntex] and the flags has_normals,
+    has_uvs, has_materials, has_textures, has_normal_maps, texture_nearest,
+    max_leaf."""
     return MeshTensors.from_packed(np.asarray(tris_packed, np.float32),
                                    int(num_triangles), device=device,
                                    **fields)

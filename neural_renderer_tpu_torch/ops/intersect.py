@@ -1,11 +1,13 @@
-"""Slab test, hit-data computation and material resolution.
+"""Slab test, texture sampling, hit-data computation and material
+resolution.
 
 Port of `neural_renderer_tpu/ops/intersect.py`: `intersect_aabb`,
-`compute_hit_data` (barycentric position, smooth shading normal, uv and
-material id) and `resolve_material` for the global row and per-mesh constant
-rows. Texture sampling and normal maps are not ported yet: a mesh that
-carries textures raises NotImplementedError. All vectors are channel-major
-[3, N].
+`ortho_basis`, `sample_texture` (the packed atlas: uv wrapped by fract, then
+nearest by truncation or bilinear over [0, dim - 1], with the clamps),
+`compute_hit_data` (barycentric position, smooth shading normal, uv,
+material id and the normal map) and `resolve_material` (the global row, the
+per-mesh rows and their textured base colour, metallic, roughness and
+specular). All vectors are channel-major [3, N].
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from ..scene.materials import (
     P_ANISOTROPY, P_BASE_B, P_BASE_G, P_BASE_R, P_CLEARCOAT,
     P_CLEARCOAT_GLOSS, P_EMISSION_B, P_EMISSION_G, P_EMISSION_R,
     P_EMISSION_SCALE, P_IOR, P_METALLIC, P_ROUGHNESS, P_SHEEN, P_SHEEN_TINT,
-    P_SPEC_TRANS, P_SPECULAR, P_SPECULAR_TINT)
-from .linalg import cross, safe_normalize
+    P_SPEC_TRANS, P_SPECULAR, P_SPECULAR_TINT, T_BASE_COLOR, T_METALLIC,
+    T_NORMAL, T_ROUGHNESS, T_SPECULAR)
+from .linalg import cross, safe_normalize, where3
 
 
 def intersect_aabb(origins, inv_dirs, bounds_min, bounds_max, t_max):
@@ -34,6 +37,52 @@ def intersect_aabb(origins, inv_dirs, bounds_min, bounds_max, t_max):
     return hit, tmin
 
 
+def ortho_basis(normal):
+    """Tangent and bitangent of a [3, N] normal."""
+    ax = torch.abs(normal[0]) < 0.6
+    ay = torch.abs(normal[1]) < 0.6
+    b = torch.stack([ax, (~ax) & ay, (~ax) & (~ay)], dim=0).to(normal.dtype)
+    tangent = safe_normalize(cross(b, normal), eps=1e-20)
+    bitangent = safe_normalize(cross(normal, tangent), eps=1e-20)
+    return tangent, bitangent
+
+
+def sample_texture(mesh, tex_id, u, v):
+    """Sample the packed atlas [3, P] at uv; returns (rgb [3, N], valid
+    [N]), valid where tex_id >= 0."""
+    valid = tex_id >= 0
+    tid = torch.clamp(tex_id, 0, mesh.tex_width.shape[0] - 1)
+    w = mesh.tex_width[tid]
+    h = mesh.tex_height[tid]
+    off = mesh.tex_offset[tid]
+    uu = u - torch.floor(u)
+    vv = v - torch.floor(v)
+    last = mesh.atlas.shape[1] - 1
+
+    def fetch(xi, yi):
+        return mesh.atlas[:, torch.clamp(off + yi * w + xi, 0, last)]
+
+    f32 = torch.float32
+    if mesh.texture_nearest:
+        x = torch.minimum(torch.clamp((uu * w.to(f32)).to(torch.int64),
+                                      min=0), w - 1)
+        y = torch.minimum(torch.clamp((vv * h.to(f32)).to(torch.int64),
+                                      min=0), h - 1)
+        return fetch(x, y), valid
+
+    x = uu * (w - 1).to(f32)
+    y = vv * (h - 1).to(f32)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.minimum(x0 + 1, w - 1)
+    y1 = torch.minimum(y0 + 1, h - 1)
+    tx = (x - x0.to(f32))[None, :]
+    ty = (y - y0.to(f32))[None, :]
+    c0 = fetch(x0, y0) * (1.0 - tx) + fetch(x1, y0) * tx
+    c1 = fetch(x0, y1) * (1.0 - tx) + fetch(x1, y1) * tx
+    return c0 * (1.0 - ty) + c1 * ty, valid
+
+
 class HitData(NamedTuple):
     position: torch.Tensor          # [3, N]
     t: torch.Tensor                 # [N]
@@ -44,11 +93,8 @@ class HitData(NamedTuple):
 
 
 def compute_hit_data(mesh, origins, dirs, tri_idx, u, v, t) -> HitData:
-    """Barycentric position / normal / uv and the material id of each hit.
-    The caller masks out misses."""
-    if mesh.has_normal_maps:
-        raise NotImplementedError(
-            "normal maps need the texture atlas sampler, not ported yet")
+    """Barycentric position / normal / uv, the material id and the normal
+    map of each hit. The caller masks out misses."""
     tri = torch.clamp(tri_idx, 0, mesh.indices.shape[1] - 1)
     idx = mesh.indices[:, tri]
     v0 = mesh.vertices[:, idx[0]]
@@ -78,6 +124,19 @@ def compute_hit_data(mesh, origins, dirs, tri_idx, u, v, t) -> HitData:
         material_id = mesh.tri_material[tri]
     else:
         material_id = torch.full_like(tri, -1)
+
+    if mesh.has_normal_maps:
+        mid = torch.clamp(material_id, 0, mesh.mat_tex_ids.shape[1] - 1)
+        ntex = torch.where(material_id >= 0, mesh.mat_tex_ids[T_NORMAL][mid],
+                           -1)
+        tex_n, valid = sample_texture(mesh, ntex, uv_out[0], uv_out[1])
+        valid = valid & (tex_n[0] >= 0.0)
+        ts_n = safe_normalize(tex_n * 2.0 - 1.0, eps=1e-20)
+        tang, bitang = ortho_basis(shading_n)
+        mapped = safe_normalize(
+            tang * ts_n[0][None, :] + bitang * ts_n[1][None, :]
+            + shading_n * ts_n[2][None, :], eps=1e-20)
+        shading_n = where3(valid, mapped, shading_n)
     return HitData(position=position, t=t, shading_normal=shading_n,
                    geometric_normal=geom_n, uv=uv_out,
                    material_id=material_id)
@@ -102,16 +161,12 @@ class ResolvedMaterial(NamedTuple):
 
 def resolve_material(mesh, material_id, uv, global_scalars) -> ResolvedMaterial:
     """Per-hit material: material_id < 0 (or a mesh without materials) takes
-    `global_scalars` [NUM_SCALARS], otherwise the mesh's constant row."""
-    if mesh.has_textures:
-        raise NotImplementedError(
-            "textured materials need the texture atlas sampler, not ported "
-            "yet")
+    `global_scalars` [NUM_SCALARS], otherwise the mesh's row, whose base
+    colour, metallic, roughness and specular may sample the atlas."""
     n = material_id.shape[0]
+    use_mesh = (material_id >= 0) & bool(mesh.has_materials)
+    mid = torch.clamp(material_id, 0, mesh.mat_scalars.shape[1] - 1)
     if mesh.has_materials:
-        use_mesh = material_id >= 0
-        mid = torch.clamp(material_id, 0, mesh.mat_scalars.shape[1] - 1)
-
         def scalar(k):
             return torch.where(use_mesh, mesh.mat_scalars[k][mid],
                                global_scalars[k])
@@ -119,12 +174,33 @@ def resolve_material(mesh, material_id, uv, global_scalars) -> ResolvedMaterial:
         def scalar(k):
             return global_scalars[k].expand(n)
 
+    base_color = torch.stack([scalar(P_BASE_R), scalar(P_BASE_G),
+                              scalar(P_BASE_B)], dim=0)
+    metallic = scalar(P_METALLIC)
+    roughness = scalar(P_ROUGHNESS)
+    specular = scalar(P_SPECULAR)
+    if mesh.has_textures:
+        def tex_slot(slot):
+            return torch.where(use_mesh, mesh.mat_tex_ids[slot][mid], -1)
+
+        def tex_scalar(slot, const):
+            rgb, valid = sample_texture(mesh, tex_slot(slot), uv[0], uv[1])
+            ch = torch.clamp(mesh.mat_tex_chans[slot][mid], 0, 2)
+            val = torch.gather(rgb, 0, ch[None, :])[0]
+            return torch.where(valid, val, const)
+
+        rgb_bc, valid_bc = sample_texture(mesh, tex_slot(T_BASE_COLOR),
+                                          uv[0], uv[1])
+        base_color = where3(valid_bc, rgb_bc, base_color)
+        metallic = tex_scalar(T_METALLIC, metallic)
+        roughness = tex_scalar(T_ROUGHNESS, roughness)
+        specular = tex_scalar(T_SPECULAR, specular)
+
     return ResolvedMaterial(
-        base_color=torch.stack([scalar(P_BASE_R), scalar(P_BASE_G),
-                                scalar(P_BASE_B)], dim=0),
-        metallic=scalar(P_METALLIC),
-        roughness=scalar(P_ROUGHNESS),
-        specular=scalar(P_SPECULAR),
+        base_color=base_color,
+        metallic=metallic,
+        roughness=roughness,
+        specular=specular,
         specular_tint=scalar(P_SPECULAR_TINT),
         anisotropy=scalar(P_ANISOTROPY),
         sheen=scalar(P_SHEEN),

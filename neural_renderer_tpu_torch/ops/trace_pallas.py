@@ -247,6 +247,35 @@ def dense_scratch(name: str, origins, ttot: int, rows: int):
     return lib, slices.value, feat, part
 
 
+# Rays the twins below evaluate at once on the CPU: whole live blocks, few
+# enough that the [rays, tile] temporaries stay in cache. The per-ray math
+# does not depend on the batch, so the grouping leaves every bit as it is.
+# On the card the twins take every ray in one batch (fewer launches).
+_TWIN_RAYS = 2048
+
+
+def _over_live_blocks(block_mask, n, fill, fn):
+    """[R, n] f32: `fill` (R values) in every block whose skip flag is 0,
+    fn(cols) ([R, len(cols)]) on the rays `cols` of the live blocks (on
+    the CPU _TWIN_RAYS at a time; on the card all n rays in one call,
+    dead blocks then overwritten)."""
+    dev = block_mask.device
+    live = block_mask != 0
+    fill = torch.tensor(fill, dtype=torch.float32, device=dev)[:, None]
+    if block_mask.is_cuda:
+        rows = fn(torch.arange(n, device=dev))
+        return torch.where(torch.repeat_interleave(live, BLOCK_RAYS)[None],
+                           rows, fill)
+    out = fill.repeat(1, n)
+    blocks = torch.nonzero(live).squeeze(1)
+    lane = torch.arange(BLOCK_RAYS, device=dev)
+    per = _TWIN_RAYS // BLOCK_RAYS
+    for g in range(0, blocks.numel(), per):
+        cols = (blocks[g:g + per, None] * BLOCK_RAYS + lane).reshape(-1)
+        out[:, cols] = fn(cols)
+    return out
+
+
 def trace_dense_twin(origins, dirs, tris_packed, mode: int, block_mask,
                      mxu: bool = False):
     """Plain-PyTorch twin of the dense trace kernel: the same outputs,
@@ -256,21 +285,24 @@ def trace_dense_twin(origins, dirs, tris_packed, mode: int, block_mask,
     formulation (`trace_mxu.mxu_tile_t`)."""
     from . import trace_mxu
     pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
-    n = origins.shape[1]
-    best_t = torch.full((n,), MISS, dtype=torch.float32,
-                        device=origins.device)
-    best_tri = torch.zeros((n,), dtype=torch.int32, device=origins.device)
-    for c in range(0, tris_packed.shape[1], TRI_TILE):
-        t, det = pairs(origins, dirs, tris_packed[:, c:c + TRI_TILE])
-        t = _mode_cull(t, det, mode)
-        tc, ci = t.min(dim=1)     # first index among equal minima
-        better = tc < best_t
-        best_t = torch.where(better, tc, best_t)
-        best_tri = torch.where(better, (c + ci).to(torch.int32), best_tri)
-    live = torch.repeat_interleave(block_mask != 0, BLOCK_RAYS)
-    best_t = torch.where(live, best_t, torch.full_like(best_t, MISS))
-    best_tri = torch.where(live, best_tri, torch.zeros_like(best_tri))
-    return torch.stack([best_t, best_tri.view(torch.float32)], dim=0)
+
+    def rays(cols):
+        o, d = origins[:, cols], dirs[:, cols]
+        best_t = torch.full((cols.numel(),), MISS, dtype=torch.float32,
+                            device=o.device)
+        best_tri = torch.zeros((cols.numel(),), dtype=torch.int32,
+                               device=o.device)
+        for c in range(0, tris_packed.shape[1], TRI_TILE):
+            t, det = pairs(o, d, tris_packed[:, c:c + TRI_TILE])
+            t = _mode_cull(t, det, mode)
+            tc, ci = t.min(dim=1)     # first index among equal minima
+            better = tc < best_t
+            best_t = torch.where(better, tc, best_t)
+            best_tri = torch.where(better, (c + ci).to(torch.int32),
+                                   best_tri)
+        return torch.stack([best_t, best_tri.view(torch.float32)], dim=0)
+
+    return _over_live_blocks(block_mask, origins.shape[1], [MISS, 0.0], rays)
 
 
 def _check_trace_dense(what, origins, tris_packed):
@@ -336,29 +368,33 @@ def sweep_shells_dense_twin(origins, dirs, tris_packed, outer_cols: int,
     from . import trace_mxu
     if pairs is None:
         pairs = trace_mxu.mxu_tile_t if mxu else _mt_tile_t
-    n = origins.shape[1]
-    miss = torch.full((n,), MISS, dtype=torch.float32, device=origins.device)
-    m1f, m2f, m1b, i1f, i1b = miss, miss, miss, miss, miss
-    for c in range(0, tris_packed.shape[1], SWEEP_TRI_TILE):
-        t, det = pairs(origins, dirs, tris_packed[:, c:c + SWEEP_TRI_TILE])
-        big = torch.full_like(t, MISS)
-        tf = torch.where(det > 0.0, t, big)
-        tbk = torch.where(det < 0.0, t, big).min(dim=1).values
-        if c < outer_cols:
-            if with_fwd2:
-                lf1, lf2 = _lane_pair_reduce(tf, big)
-                m1f, m2f = _strict_pair_update(m1f, m2f, lf1)
-                m1f, m2f = _strict_pair_update(m1f, m2f, lf2)
+
+    def rays(cols):
+        o, d = origins[:, cols], dirs[:, cols]
+        miss = torch.full((cols.numel(),), MISS, dtype=torch.float32,
+                          device=o.device)
+        m1f, m2f, m1b, i1f, i1b = miss, miss, miss, miss, miss
+        for c in range(0, tris_packed.shape[1], SWEEP_TRI_TILE):
+            t, det = pairs(o, d, tris_packed[:, c:c + SWEEP_TRI_TILE])
+            big = torch.full_like(t, MISS)
+            tf = torch.where(det > 0.0, t, big)
+            tbk = torch.where(det < 0.0, t, big).min(dim=1).values
+            if c < outer_cols:
+                if with_fwd2:
+                    lf1, lf2 = _lane_pair_reduce(tf, big)
+                    m1f, m2f = _strict_pair_update(m1f, m2f, lf1)
+                    m1f, m2f = _strict_pair_update(m1f, m2f, lf2)
+                else:
+                    m1f = torch.minimum(m1f, tf.min(dim=1).values)
+                m1b = torch.minimum(m1b, tbk)
             else:
-                m1f = torch.minimum(m1f, tf.min(dim=1).values)
-            m1b = torch.minimum(m1b, tbk)
-        else:
-            i1f = torch.minimum(i1f, tf.min(dim=1).values)
-            i1b = torch.minimum(i1b, tbk)
-    rows = torch.stack([m1f, m1b, i1f, i1b] + ([m2f] if with_fwd2 else []),
-                       dim=0)
-    live = torch.repeat_interleave(block_mask != 0, BLOCK_RAYS)
-    return torch.where(live[None, :], rows, torch.full_like(rows, MISS))
+                i1f = torch.minimum(i1f, tf.min(dim=1).values)
+                i1b = torch.minimum(i1b, tbk)
+        return torch.stack([m1f, m1b, i1f, i1b]
+                           + ([m2f] if with_fwd2 else []), dim=0)
+
+    return _over_live_blocks(block_mask, origins.shape[1],
+                             [MISS] * (5 if with_fwd2 else 4), rays)
 
 
 def _check_sweep_dense(what, origins, tris_packed, outer_cols):

@@ -1,14 +1,15 @@
-"""Neural-branch frame: shell-march primary + wavefront bounce loop.
+"""Neural-branch frame: shell-march primary, the hybrid additional mesh,
+and the wavefront bounce loop.
 
 Port of `neural_renderer_tpu/render/neural_frame.py`: `render_neural_frame`
 and `_bounce_stage_compacted`:
-  1. multi-segment shell march for camera rays;
+  1. multi-segment shell march for camera rays; with the hybrid branch, the
+     additional mesh traced FORWARD_ONLY and the nearer hit kept;
   2. bounces: Disney sample -> early termination + shell entry (one sweep)
-     -> shell march on the compacted, spatially sorted active rays ->
-     environment integration;
+     -> shell march on the compacted, spatially sorted active rays (and the
+     additional mesh traced ANY on them, merged) -> environment
+     integration;
   3. finalize with running accumulation.
-The hybrid additional-mesh branch is not ported yet (`use_additional=True`
-raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -23,16 +24,22 @@ from .neural_march import (_COMPACT_MIN_RAYS, NeuralContext, _material_rows,
                            trace_neural_segments)
 
 
-def _bounce_stage(ctx, params, rays: "pt.BounceRays", active):
+def _bounce_stage(ctx, params, additional, rays: "pt.BounceRays", active):
     """Early termination + shell entry (one fused sweep) + shell march, on
-    any batch width."""
+    any batch width; with an `additional` mesh (else None) its ANY trace of
+    the rays with pdf > 0, merged by distance."""
     active, entry = bounce_shell_entry_and_early_term(ctx, rays, active)
     hits = trace_neural_segments(ctx, params, rays.origin, rays.direction,
                                  entry=entry)
+    if additional is not None:
+        add_hits = pt.trace_rays_mesh(additional, params, rays.origin,
+                                      rays.direction, traversal.ANY,
+                                      active=rays.pdf > 0.0)
+        hits = pt.select_closest_hits(params, hits, add_hits, rays.origin)
     return hits, active
 
 
-def _bounce_stage_compacted(ctx, params, rays, path_active,
+def _bounce_stage_compacted(ctx, params, additional, rays, path_active,
                             compaction: bool | None = None):
     """The bounce stage on the active rays only, gathered and ordered by
     `_ray_sort_order` (direction octant | origin morton | direction
@@ -44,7 +51,7 @@ def _bounce_stage_compacted(ctx, params, rays, path_active,
     mask = path_active & (rays.pdf > 0.0)
     use = (n >= _COMPACT_MIN_RAYS) if compaction is None else bool(compaction)
     if not use:
-        return _bounce_stage(ctx, params, rays, mask)
+        return _bounce_stage(ctx, params, additional, rays, mask)
 
     zero3 = torch.zeros((3, n), dtype=torch.float32, device=dev)
     idx0 = torch.nonzero(mask).squeeze(1)
@@ -66,7 +73,8 @@ def _bounce_stage_compacted(ctx, params, rays, path_active,
         brdf_weight=torch.zeros((3, k), dtype=torch.float32, device=dev),
         distance=rays.distance[idx])
     hits_k, act_k = _bounce_stage(
-        ctx, params, rays_k, torch.ones(k, dtype=torch.bool, device=dev))
+        ctx, params, additional, rays_k,
+        torch.ones(k, dtype=torch.bool, device=dev))
 
     def srow(vals):
         out = torch.zeros((*vals.shape[:-1], n), dtype=vals.dtype, device=dev)
@@ -74,26 +82,38 @@ def _bounce_stage_compacted(ctx, params, rays, path_active,
         return out
 
     hit_full = srow(hits_k.hit)
+    if additional is None:
+        # Every march hit carries the same global-material row.
+        material_params = where3(hit_full, _material_rows(params, n, dev),
+                                 zero3)
+    else:
+        # A hit of the additional mesh carries its own material's.
+        material_params = srow(hits_k.material_params)
     hits = pt.HitState(
         position=srow(hits_k.position), normal=srow(hits_k.normal),
-        albedo=srow(hits_k.albedo),
-        # Every march hit carries the same global-material row.
-        material_params=where3(hit_full, _material_rows(params, n, dev),
-                               zero3),
+        albedo=srow(hits_k.albedo), material_params=material_params,
         hit=hit_full, distance=srow(hits_k.distance))
     return hits, srow(act_k)
 
 
 def render_neural_frame(ctx: NeuralContext, env, params, accum,
                         use_additional: bool = False,
-                        bounce_compaction: bool | None = None):
+                        bounce_compaction: bool | None = None,
+                        additional_mesh=None):
     """One accumulation batch of neural path tracing. Returns
-    (image_u8 [H, W, 3], new_accum [3, H*W])."""
-    if use_additional:
-        raise NotImplementedError(
-            "the hybrid additional-mesh branch is not ported yet")
+    (image_u8 [H, W, 3], new_accum [3, H*W]). use_additional traces
+    `additional_mesh` (MeshTensors) beside the shells, where it is not
+    empty."""
+    if use_additional and additional_mesh is None:
+        raise ValueError("use_additional needs the additional_mesh")
+    additional = additional_mesh if (
+        use_additional and not additional_mesh.is_empty) else None
     pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(params)
     hits = trace_neural_segments(ctx, params, origins, dirs)
+    if additional is not None:
+        add_hits = pt.trace_rays_mesh(additional, params, origins, dirs,
+                                      traversal.FORWARD_ONLY)
+        hits = pt.select_closest_hits(params, hits, add_hits, origins)
     path = pt.init_path_state(params, env, hits, dirs)
 
     incoming = None
@@ -107,7 +127,8 @@ def render_neural_frame(ctx: NeuralContext, env, params, accum,
                                            cur_hits, path.active, incoming)
         path = pt.update_active_after_sampling(path, cur_hits, rays)
         bounce_hits, active = _bounce_stage_compacted(
-            ctx, params, rays, path.active, compaction=bounce_compaction)
+            ctx, params, additional, rays, path.active,
+            compaction=bounce_compaction)
         path = path._replace(active=active)
         path = pt.integrate_bounce(params, env, path, bounce_hits, rays,
                                    bounce, pixel_idx, sample_of)

@@ -3,7 +3,8 @@
 Port of `neural_renderer_tpu/render/pathtrace.py`: `HitState`, `PathState`,
 `BounceRays`, `sample_grid`, `primary_rays`, `init_path_state`,
 `sample_bounce_directions`, `update_active_after_sampling`,
-`integrate_bounce`, `finalize` (shared with the neural frame) and the
+`integrate_bounce`, `finalize` (shared with the neural frame),
+`select_closest_hits` (the hybrid branch's merge) and the
 ground-truth branch: `trace_primary_gt`, `trace_rays_mesh`,
 `trace_bounces_gt`, `lambert_shade`, `accum_image`, `render_gt_frame`,
 `render_gt_lambert`. Samples are flat [N = spp * pixels] with sample_idx =
@@ -113,6 +114,23 @@ def trace_bounces_gt(mesh, params, rays: "BounceRays") -> HitState:
     """Bounce rays against the ground-truth mesh, TraceMode ANY."""
     return trace_rays_mesh(mesh, params, rays.origin, rays.direction,
                            traversal.ANY, active=rays.pdf > 0.0)
+
+
+def select_closest_hits(params, a: HitState, b: HitState,
+                        ray_origins) -> HitState:
+    """Merge two hit sets by distance from the ray origin; `a` wins ties."""
+    da = a.position - ray_origins
+    db = b.position - ray_origins
+    dist_a = torch.sqrt(torch.clamp(dot(da, da), min=0.0))
+    dist_b = torch.sqrt(torch.clamp(dot(db, db), min=0.0))
+    use_b = (b.hit & ~a.hit) | (a.hit & b.hit & (dist_b < dist_a))
+    return HitState(
+        position=where3(use_b, b.position, a.position),
+        normal=where3(use_b, b.normal, a.normal),
+        albedo=where3(use_b, b.albedo, a.albedo),
+        material_params=where3(use_b, b.material_params, a.material_params),
+        hit=a.hit | b.hit,
+        distance=torch.where(use_b, dist_b, a.distance))
 
 
 def init_path_state(params, env, hits: HitState, prim_dirs) -> PathState:

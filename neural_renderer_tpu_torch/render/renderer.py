@@ -5,13 +5,17 @@ NeuralNetworkConfig, with `resize`, the `set_*` API, `render(cam_pos)` (one
 accumulation batch, with the camera/setting change detection that resets
 accumulation) and `render_accumulate` (a fixed number of samples from a
 fresh accumulator). Branches: ground truth path-traced and Lambert, neural
-path-traced. PyTorch runs eagerly, so `render_accumulate` is a plain loop
-over batches. The neural Lambert view, the hybrid additional-mesh branch,
-denoising and the tiled multi-device paths are not ported yet.
+path-traced, with the hybrid additional mesh where the scene has one and
+`use_additional_mesh` is on. The environment is the scene's map (or the
+procedural sky) with the renderer's rotation and strength. PyTorch runs
+eagerly, so `render_accumulate` is a plain loop over batches. The neural
+Lambert view, denoising and the tiled multi-device paths are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import sys
@@ -23,7 +27,6 @@ import torch
 
 from ..config import NeuralNetworkConfig
 from ..models import convert, nbvh
-from ..scene.envmap import EnvironmentTensors
 from ..scene.scene import Scene
 from .neural_frame import render_neural_frame
 from .neural_march import NeuralContext
@@ -87,6 +90,7 @@ class Renderer:
         self._accum = None
         self._accum_sample_count = 0
         self._mesh_cache = {}
+        self._env_pixels = None
         self._last_state = None
         self._weights_version = 0
         self.last_frame_seconds = 0.0
@@ -170,9 +174,13 @@ class Renderer:
         return self._mesh_cache[name]
 
     def _env_tensors(self):
-        return EnvironmentTensors.from_numpy(
-            None, rotation=self.envmap_rotation, strength=self.env_strength,
-            device=self.device)
+        if self._env_pixels is None:
+            # The map's pixels move to the device once.
+            self._env_pixels = self.scene.environment.to_tensors(
+                device=self.device)
+        return dataclasses.replace(self._env_pixels,
+                                   rotation=self.envmap_rotation,
+                                   strength=self.env_strength)
 
     def _settings_key(self, cam_pos):
         def r5(v):
@@ -229,8 +237,10 @@ class Renderer:
                                 net=self.net)
             use_add = (self.use_additional_mesh
                        and self.scene.additional_mesh.num_triangles > 0)
+            add = self._mesh_tensors("additional_mesh") if use_add else None
             return (lambda env, params, accum: render_neural_frame(
-                ctx, env, params, accum, use_additional=use_add)), None
+                ctx, env, params, accum, use_additional=use_add,
+                additional_mesh=add)), None
         mesh = self._mesh_tensors("original_mesh")
         return (lambda env, params, accum: render_gt_frame(
             mesh, env, params, accum),

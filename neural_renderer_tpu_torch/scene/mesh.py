@@ -5,9 +5,8 @@ Port of `neural_renderer_tpu/scene/mesh.py` (`Mesh` -> `HostMesh`,
 `scene/mesh_loader.py::generate_uv_sphere`. `HostMesh.build_bvh` reorders
 the triangles into SAH-BVH leaf order (`scene/bvh.py`), which makes
 consecutive 256-triangle clusters spatially tight; `to_tensors` emits the
-channel-major tensors the traces, the BVH walk and the hit-data stage read.
-Per-mesh materials are constant rows (`mat_scalars`); the texture atlas is
-not ported yet.
+channel-major tensors the traces, the BVH walk and the hit-data stage read,
+with the material tables and the texture atlas of `MaterialTable.build`.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch
 from ..ops.trace_cluster import cluster_bounds_from_packed
 from .bvh import (BvhArrays, build_bvh, compute_skip_links,
                   remap_material_ranges)
-from .materials import NUM_SCALARS, Material
+from .materials import MaterialTable
 
 
 @dataclass
@@ -33,7 +32,8 @@ class MeshTensors:
     clusters; bounds_min/max the root AABB. These five serve the shell
     traces. The ground-truth path also reads the indexed geometry, the
     packed BVH nodes (rows 0-2 bmin, 3-5 bmax, 6 left, 7 skip, 8 first,
-    9 count, 10 is_leaf, the int rows bitcast to f32) and the material rows;
+    9 count, 10 is_leaf, the int rows bitcast to f32), the material rows,
+    the per-material texture slots and channels and the texture atlas;
     they are None on a mesh built from packed triangles only."""
     tris_packed: torch.Tensor     # [9, T] f32 (T >= 1; zeros when empty)
     cluster_bounds: torch.Tensor  # [6, C] f32
@@ -47,11 +47,18 @@ class MeshTensors:
     tri_material: torch.Tensor | None = None  # [T] int64, -1 = global
     nodes_packed: torch.Tensor | None = None  # [11, N] f32
     mat_scalars: torch.Tensor | None = None   # [NUM_SCALARS, M] f32
+    mat_tex_ids: torch.Tensor | None = None   # [NUM_TEX_SLOTS, M] int64
+    mat_tex_chans: torch.Tensor | None = None  # [NUM_TEX_SLOTS, M] int64
+    atlas: torch.Tensor | None = None         # [3, P] f32
+    tex_offset: torch.Tensor | None = None    # [Ntex] int64
+    tex_width: torch.Tensor | None = None     # [Ntex] int64
+    tex_height: torch.Tensor | None = None    # [Ntex] int64
     has_normals: bool = False
     has_uvs: bool = False
     has_materials: bool = False
     has_textures: bool = False
     has_normal_maps: bool = False
+    texture_nearest: bool = False
     max_leaf: int = 4
 
     @property
@@ -77,7 +84,7 @@ class MeshTensors:
 
         fields = {}
         for name, val in extra.items():
-            if name in ("indices", "tri_material"):
+            if name in _INT_FIELDS:
                 val = torch.as_tensor(np.array(val, np.int64), device=device)
             elif isinstance(val, np.ndarray):
                 val = t(val)
@@ -87,6 +94,10 @@ class MeshTensors:
             cluster_bounds=t(cluster_bounds_from_packed(tp, num_triangles)),
             bounds_min=t(lo), bounds_max=t(hi),
             num_triangles=int(num_triangles), **fields)
+
+
+_INT_FIELDS = ("indices", "tri_material", "mat_tex_ids", "mat_tex_chans",
+               "tex_offset", "tex_width", "tex_height")
 
 
 def pack_nodes(bvh: BvhArrays) -> np.ndarray:
@@ -104,7 +115,8 @@ def pack_nodes(bvh: BvhArrays) -> np.ndarray:
 class HostMesh:
     """Indexed triangle mesh on the host: vertices [V, 3], indices [T, 3],
     optional per-vertex normals [V, 3] and texcoords [V, 2], per-primitive
-    material ranges and constant materials."""
+    material ranges, materials and their textures ([H, W(, C)] arrays;
+    nearest or bilinear filtering)."""
     vertices: np.ndarray = field(
         default_factory=lambda: np.zeros((0, 3), np.float32))
     indices: np.ndarray = field(
@@ -119,6 +131,8 @@ class HostMesh:
         default_factory=lambda: np.zeros(0, np.int32))   # material per range
     materials: list = field(default_factory=list)        # [Material]
     has_mesh_materials: bool = False
+    textures: list = field(default_factory=list)         # [np.ndarray]
+    texture_nearest: bool = False
     _bvh: BvhArrays | None = field(default=None, repr=False)
     _tri_material: np.ndarray | None = field(default=None, repr=False)
 
@@ -190,16 +204,24 @@ class HostMesh:
         packed[3:6] = (tri[:, 1] - tri[:, 0]).T
         packed[6:9] = (tri[:, 2] - tri[:, 0]).T
 
-        rows = [m.scalar_row() for m in self.materials] or \
-            [Material.default().scalar_row()]
+        table = MaterialTable.build(self.materials, self.textures,
+                                    texture_nearest=self.texture_nearest)
         mesh = MeshTensors.from_packed(
             packed, nt, device=device, vertices=vertices.T.copy(),
             normals=normals.T.copy(), uvs=uvs.T.copy(),
             indices=indices.T.copy(), tri_material=tri_material,
             nodes_packed=pack_nodes(bvh),
-            mat_scalars=np.stack(rows, axis=1).reshape(NUM_SCALARS, -1),
+            mat_scalars=table.scalars.T.copy(),
+            mat_tex_ids=table.tex_ids.T.copy(),
+            mat_tex_chans=table.tex_chans.T.copy(),
+            atlas=table.atlas.T.copy(), tex_offset=table.tex_offset,
+            tex_width=table.tex_width, tex_height=table.tex_height,
             has_normals=has_normals, has_uvs=has_uvs,
             has_materials=self.has_mesh_materials and len(self.materials) > 0,
+            has_textures=len(self.textures) > 0,
+            has_normal_maps=(len(self.textures) > 0 and any(
+                m.normal.textured for m in self.materials)),
+            texture_nearest=self.texture_nearest,
             max_leaf=max(1, bvh.max_leaf_count()))
         # The walk and the skip flags use the BVH root box, as the JAX
         # package does.

@@ -1,27 +1,25 @@
 """Scene: the four meshes, the environment and the global material.
 
 Port of `neural_renderer_tpu/scene/scene.py`: `Scene.from_config` loads the
-meshes a RendererConfig names and applies its material block. The
-environment is the procedural sky; a config that names an environment file
-raises, because the HDR / EXR / LDR loaders are not ported yet.
+meshes a RendererConfig names (nearest texture filtering on the original
+and additional meshes, bilinear on the shells, as the reference), applies
+its material block and loads the environment file it names (HDR, EXR or
+PNG; none selects the procedural sky). A file that fails to load is
+reported on stderr and recorded (`failed_meshes`, `environment_error`), so
+an app can refuse to render without it; the reference's UV-sphere fallback
+is not taken.
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass, field
 
 from ..config import RendererConfig
+from .envmap import EnvironmentMap
 from .materials import Material
 from .mesh import HostMesh
 from .mesh_loader import load_mesh_labeled
-
-
-@dataclass
-class Environment:
-    """Procedural sky with the config's rotation and strength (which only a
-    loaded map would read)."""
-    rotation: float = 0.0
-    strength: float = 1.0
 
 
 @dataclass
@@ -30,10 +28,12 @@ class Scene:
     inner_shell: HostMesh = field(default_factory=HostMesh)
     outer_shell: HostMesh = field(default_factory=HostMesh)
     additional_mesh: HostMesh = field(default_factory=HostMesh)
-    environment: Environment = field(default_factory=Environment)
+    environment: EnvironmentMap = field(default_factory=EnvironmentMap)
     global_material: Material = field(default_factory=Material.default)
     # Labels of the meshes a config named but whose file did not load.
     failed_meshes: list = field(default_factory=list)
+    # Why the environment file the config named did not load, else None.
+    environment_error: str | None = None
 
     @staticmethod
     def from_config(config: RendererConfig) -> "Scene":
@@ -41,24 +41,28 @@ class Scene:
         fails to load is reported on stderr, stays empty and is named in
         `failed_meshes`."""
         scene = Scene()
-        for attr, label in (("original_mesh", "original"),
-                            ("inner_shell", "inner shell"),
-                            ("outer_shell", "outer shell"),
-                            ("additional_mesh", "additional mesh")):
+        for attr, label, nearest in (
+                ("original_mesh", "original", True),
+                ("inner_shell", "inner shell", False),
+                ("outer_shell", "outer shell", False),
+                ("additional_mesh", "additional mesh", True)):
             entry = getattr(config, attr)
-            loaded = load_mesh_labeled(entry.path, label, scale=entry.scale)
+            loaded = load_mesh_labeled(entry.path, label, scale=entry.scale,
+                                       nearest_tex=nearest)
             if loaded is not None:
                 setattr(scene, attr, loaded)
             elif entry.path:
                 scene.failed_meshes.append(label)
         scene.apply_material_config(config)
-        if config.environment.hdri_path:
-            raise NotImplementedError(
-                f"environment map '{config.environment.hdri_path}': the "
-                "HDR / EXR / LDR loaders (neural_renderer_tpu/scene/envmap.py"
-                ", exr*.py) are not ported yet")
-        scene.environment = Environment(config.environment.rotation,
-                                        config.environment.strength)
+        env = config.environment
+        scene.environment = EnvironmentMap(env.rotation, env.strength)
+        if env.hdri_path:
+            try:
+                scene.environment.load_from_file(env.hdri_path)
+            except Exception as e:
+                scene.environment_error = f"{type(e).__name__}: {e}"
+                print(f"Failed to load HDRI '{env.hdri_path}': "
+                      f"{scene.environment_error}", file=sys.stderr)
         return scene
 
     def apply_material_config(self, config: RendererConfig):

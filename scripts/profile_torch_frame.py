@@ -3,6 +3,7 @@
     python scripts/profile_torch_frame.py [--weights trained|seeded]
     python scripts/profile_torch_frame.py --knot gt|neural [--spp 8]
     python scripts/profile_torch_frame.py --sphere gt|neural [--spp 8]
+    python scripts/profile_torch_frame.py --studio gt|neural|hybrid [--spp 8]
     python scripts/profile_torch_frame.py --train knot|sphere [--batch N]
 
 Default: the chip_smoke.py sphere workload (shelled sphere, lane S=16,
@@ -11,7 +12,9 @@ torch.profiler. With --knot: one pass of `evaluate` on
 configs/knot/knot_lane.json (ground truth or neural) at 1920x1080, batches
 of --spp samples per pixel through the Renderer: one warm-up batch, then
 --frames batches under the profiler. --sphere does the same on
-configs/sphere/sphere.json (the tcnn-layout network, weights.bin). Prints
+configs/sphere/sphere.json (the tcnn-layout network, weights.bin), --studio
+on configs/studio/studio_lane.json (neural: without the additional mesh,
+as `evaluate --no-additional`; hybrid: with it). Prints
 the wall time per frame, the
 summed device time of all kernels and the device's idle share over the
 window, and the 20 kernels with the largest device time (the port's CUDA
@@ -42,6 +45,8 @@ def main():
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--knot", choices=("gt", "neural"), default=None)
     ap.add_argument("--sphere", choices=("gt", "neural"), default=None)
+    ap.add_argument("--studio", choices=("gt", "neural", "hybrid"),
+                    default=None)
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--train", choices=("knot", "sphere"), default=None)
     ap.add_argument("--batch", type=int, default=262144)
@@ -70,7 +75,9 @@ def main():
                f"{segments} per ray per step")
         return
     for scene, which, cfg_name in (("knot", args.knot, "knot_lane.json"),
-                                   ("sphere", args.sphere, "sphere.json")):
+                                   ("sphere", args.sphere, "sphere.json"),
+                                   ("studio", args.studio,
+                                    "studio_lane.json")):
         if which:
             render = evaluate_pass(scene, cfg_name, which, args.spp, w, h,
                                    dev)
@@ -111,7 +118,8 @@ def main():
 
 def evaluate_pass(scene, cfg_name, which, spp, w, h, dev):
     """`render()` that runs one batch of configs/<scene>/<cfg_name>'s
-    ground-truth or neural pass as `evaluate` does."""
+    ground-truth ("gt"), neural or hybrid pass as `evaluate` does (the
+    neural pass without the additional mesh, the hybrid one with it)."""
     from neural_renderer_tpu_torch import config as nr_config
     from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
                                                            Renderer)
@@ -127,7 +135,8 @@ def evaluate_pass(scene, cfg_name, which, spp, w, h, dev):
         *nr_config.camera_basis_from_state(yaw, pitch, cfg.camera.yfov)))
     renderer.resize(w, h)
     renderer.set_bounce_count(cfg.rendering.bounce_count)
-    renderer.set_use_neural_query(which == "neural")
+    renderer.set_use_neural_query(which != "gt")
+    renderer.set_use_additional_mesh(which == "hybrid")
     return lambda: renderer.render_accumulate(pos, spp, batch_spp=spp)
 
 
@@ -222,13 +231,20 @@ def report(result, frames, label):
     print(f"wall ms/frame {wall * 1e3 / frames:.3f}; device kernel "
           f"ms/frame {dev_us / 1e3 / frames:.3f}; idle share "
           f"{1.0 - dev_us / 1e6 / wall:.3f} (profiler on)")
+    # The port's own kernels: every name that is not PyTorch's, cub's or a
+    # copy.
+    def ported(e):
+        return not ("at::" in e.key or "cub::" in e.key
+                    or e.key.startswith(("Memcpy", "Memset")))
+
+    port_us = sum(e.self_device_time_total for e in events if ported(e))
+    print(f"port kernels device ms/frame {port_us / 1e3 / frames:.3f}; "
+          f"PyTorch ops and copies {(dev_us - port_us) / 1e3 / frames:.3f}")
     print(f"{'kernel':60s} {'calls/frame':>11s} {'device ms/frame':>15s}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-    # The 20 largest, then the port's own kernels below them (every name
-    # that is not PyTorch's, cub's or a copy).
+    # The 20 largest, then the port's own kernels below them.
     for i, e in enumerate(ranked):
-        if i >= 20 and ("at::" in e.key or "cub::" in e.key
-                        or e.key.startswith(("Memcpy", "Memset"))):
+        if i >= 20 and not ported(e):
             continue
         print(f"{e.key[:60]:60s} {e.count / frames:11.1f} "
               f"{e.self_device_time_total / 1e3 / frames:15.3f}")

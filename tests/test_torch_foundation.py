@@ -176,8 +176,10 @@ def test_sample_bounce_directions(first_bounce):
 def test_import_without_jax():
     """The port imports with JAX, the JAX package, imageio, matplotlib,
     orbax and optax made unimportable (sys.modules[name] = None), every
-    module of the package included (train, cli.train, ops.fused_network
-    and ops.trace_mxu among them)."""
+    module of the package included (train, cli.train, ops.fused_network,
+    ops.trace_mxu and the environment and EXR modules among them); then,
+    still without them, it loads the studio scene (the PIZ EXR sky, the
+    glTF torus and its PNG textures)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'neural_renderer_tpu', 'imageio', 'matplotlib',"
@@ -186,11 +188,18 @@ def test_import_without_jax():
         "import neural_renderer_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    p.__path__, p.__name__ + '.')]\n"
-        "assert {p.__name__ + '.train', p.__name__ + '.cli.train', "
-        "p.__name__ + '.ops.fused_network', p.__name__ + '.ops.trace_mxu'}"
+        "assert {p.__name__ + '.' + m for m in ('train', 'cli.train', "
+        "'ops.fused_network', 'ops.trace_mxu', 'scene.envmap', 'scene.exr', "
+        "'scene.exr_piz', 'scene.exr_b44', 'scene.exr_write')}"
         " <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "from neural_renderer_tpu_torch.config import load_config\n"
+        "from neural_renderer_tpu_torch.scene.scene import Scene\n"
+        "s = Scene.from_config(load_config("
+        "'configs/studio/studio_lane.json'))\n"
+        "assert s.environment.is_valid and len(s.original_mesh.textures) == 2"
+        "\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -175,8 +175,20 @@ def test_compaction_equals_full_batch(scene):
 
 
 def test_hybrid_branch_not_ported(scene):
-    with pytest.raises(NotImplementedError):
-        neural_frame.render_neural_frame(
-            _port_ctx(scene, "cpu"), None, _port_params(scene, 8, 8, 1,
-                                                        "cpu"),
-            torch.zeros((3, 64)), use_additional=True)
+    """The hybrid branch is ported (tests/test_torch_studio.py holds it to
+    the JAX frame): use_additional without the mesh raises, and an empty
+    additional mesh leaves the frame as it is without the branch."""
+    from neural_renderer_tpu_torch.scene.mesh import HostMesh
+    ctx, params = _port_ctx(scene, "cpu"), _port_params(scene, 8, 8, 1,
+                                                        "cpu")
+    env = EnvironmentTensors.from_numpy(None, device="cpu")
+    with pytest.raises(ValueError, match="additional_mesh"):
+        neural_frame.render_neural_frame(ctx, env, params,
+                                         torch.zeros((3, 64)),
+                                         use_additional=True)
+    img, _ = neural_frame.render_neural_frame(ctx, env, params,
+                                              torch.zeros((3, 64)))
+    empty, _ = neural_frame.render_neural_frame(
+        ctx, env, params, torch.zeros((3, 64)), use_additional=True,
+        additional_mesh=HostMesh().to_tensors("cpu"))
+    assert torch.equal(img, empty)
