@@ -165,7 +165,31 @@ its training. Phases, each failing the run:
      at the same size (no gate: the ground truth never traces the
      additional mesh), K3 launching in its neural pass; (f) run it at
      1920x1080 with 8 samples in one batch and log each pass's Mrays/s and
-     peak memory.
+     peak memory;
+ 23. every scene and image format the JAX package reads: (a) on the host,
+     the DWAA / DWAB fixtures against OpenEXR's decodes (at least 99.9% of
+     the DCT halfs identical, none more than 4 half-ulps apart, alpha and
+     Z bit-exact) and the JPEG fixtures (scripts/make_jpeg_fixture.py)
+     against Pillow's decodes byte for byte, through the native and the
+     Python entropy paths, each timed; (b) the knot's meshes written from
+     the OBJ loader's arrays (scripts/mesh_writers.py) as binary PLY (the
+     original, with its normals), STL (outer shell) and FBX (inner shell)
+     into a temporary directory: PLY's arrays must equal the OBJ's bit for
+     bit, the shells' triangles the OBJ's in order and value (FBX's
+     float64 pretransform may turn -0.0 into +0.0); `evaluate` on a copy of
+     knot_lane.json naming them at 480x270 x 64, counters at 0 first: K5
+     must launch in the ground-truth pass, K1 and K2 in the neural pass,
+     the knot gate must hold and PSNR and FLIP must equal phase 7's as
+     printed; (c) the studio with --no-additional under the JPEG sky and
+     then the DWAB sky: 480x270 frames through the kernels and the twins
+     on the card held to phase 3's bounds, and `evaluate` with K3 launching
+     in the ground-truth pass, K4 and K2 in the neural pass (PSNR and FLIP
+     logged, no gate: the gate was recorded under the PIZ sky); (d)
+     `compare_images` with FLIP on the card on each pass's saved PNGs must
+     print what `evaluate` printed, on a JPEG of the neural image
+     (scripts/jpeg_writer.py) must stay within 1 dB, and on the neural
+     image flipped upside down must detect the flip and print the
+     unflipped pair's numbers.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -927,6 +951,7 @@ def main() -> int:
     text = run_evaluate(evaluate, [knot_cfg_path, "--width", "480",
                                    "--height", "270", "--output", out_dir])
     psnr, flip = parse_metrics(text)
+    knot7 = (psnr, flip)
     log(f"[evaluate knot 480x270 x{kcfg.rendering.total_samples}] PSNR "
         f"{psnr!r} dB, FLIP {flip!r} (gate >= 40.2 dB, <= 0.018)")
     if not (psnr >= 40.2 and flip <= 0.018):
@@ -1637,6 +1662,11 @@ def main() -> int:
     studio_phase(kernels, smi)
     log(f"[phase 22] {time.perf_counter() - t22:.1f} s")
 
+    # ---- 23. every scene and image format ---------------------------------
+    t23 = time.perf_counter()
+    formats_phase(knot7)
+    log(f"[phase 23] {time.perf_counter() - t23:.1f} s")
+
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
                 "K4-MXU", "K5-MXU", *(k for k in kernels
@@ -1938,6 +1968,333 @@ def studio_phase(kernels, smi, dev="cuda"):
     kernels["K2"]["studio"] = dict(march_iteration_1=case2,
                                    launches=gate["launches"])
 
+
+
+KNOT_GATE = dict(psnr=40.2, flip=0.018)      # phase 7's gate
+FORMATS_STUDIO_SKIES = (("jpeg", "studio_sky_baseline.jpg"),
+                        ("dwab", "dwab_reference.exr"))
+
+
+def exr_chunks(path):
+    """A scanline EXR's blocks: yields (raw bytes, channels, width, lines)
+    for each, so a block decoder can be driven on the channels read_exr
+    does not return (alpha, Z)."""
+    import struct
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, attrs = 8, {}
+    while data[pos] != 0:
+        end = data.index(b"\0", pos)
+        name = data[pos:end].decode()
+        pos = data.index(b"\0", end + 1) + 1
+        size = struct.unpack_from("<i", data, pos)[0]
+        attrs[name] = data[pos + 4:pos + 4 + size]
+        pos += 4 + size
+    pos += 1
+    chans, cbuf, cp = [], attrs["channels"], 0
+    while cbuf[cp] != 0:
+        end = cbuf.index(b"\0", cp)
+        chans.append((cbuf[cp:end].decode(),
+                      struct.unpack_from("<i", cbuf, end + 1)[0]))
+        cp = end + 17
+    lines = {8: 32, 9: 256}[attrs["compression"][0]]
+    xmin, ymin, xmax, ymax = struct.unpack_from("<iiii", attrs["dataWindow"])
+    nchunks = (ymax - ymin + lines) // lines
+    for off in struct.unpack_from(f"<{nchunks}Q", data, pos):
+        y, size = struct.unpack_from("<ii", data, off)
+        yield (data[off + 8:off + 8 + size], chans, xmax - xmin + 1,
+               min(lines, ymax - y + 1))
+
+
+def decoders_check():
+    """Phase 23 (a): the DWA fixtures against OpenEXR's decodes (the JAX
+    tests' bar) and the JPEG fixtures against Pillow's, byte for byte,
+    through the native and the Python entropy paths. Returns the decode
+    times."""
+    import numpy as np
+    from neural_renderer_tpu_torch.metrics import jpeg
+    from neural_renderer_tpu_torch.scene.exr import read_exr
+    from neural_renderer_tpu_torch.scene.exr_dwa import dwa_uncompress_block
+    golden = os.path.join(ROOT, "tests", "golden")
+    times = {}
+    for name in ("dwaa", "dwab"):
+        path = os.path.join(golden, f"{name}_reference.exr")
+        want = np.load(os.path.join(golden, f"{name}_reference_decode.npy"))
+        t0 = time.perf_counter()
+        got = read_exr(path)
+        times[f"{name}.exr"] = (time.perf_counter() - t0) * 1e3
+        ulp = np.abs(got.astype(np.float16).view(np.uint16).astype(int)
+                     - want[..., :3].astype(np.float16).view(np.uint16)
+                     .astype(int))
+        rows = []
+        fourth = "A" if name == "dwaa" else "Z"
+        for raw, chans, width, ny in exr_chunks(path):
+            out = dwa_uncompress_block(raw, chans, width, ny)
+            sizes = [width * (4 if t == 2 else 2) for _, t in chans]
+            k = [c for c, _ in chans].index(fourth)
+            start, step = sum(sizes[:k]), sum(sizes)
+            for r in range(ny):
+                rows.append(np.frombuffer(
+                    out[r * step + start:r * step + start + sizes[k]],
+                    np.float16 if name == "dwaa" else np.float32))
+        exact4 = np.array_equal(np.stack(rows).astype(np.float32),
+                                want[..., 3])
+        log(f"[formats {name}] {got.shape[1]}x{got.shape[0]} in "
+            f"{times[f'{name}.exr']:.2f} ms; DCT halfs identical "
+            f"{float((ulp == 0).mean())!r}, max {int(ulp.max())} half-ulps; "
+            f"{fourth} bit-exact {exact4}")
+        if not ((ulp == 0).mean() >= 0.999 and ulp.max() <= 4 and exact4):
+            raise AssertionError(f"{name}: the DWA decode misses "
+                                 "OpenEXR's")
+    for name in ("studio_sky_baseline", "studio_sky_progressive",
+                 "grey_restart"):
+        data = open(os.path.join(golden, f"{name}.jpg"), "rb").read()
+        want = np.load(os.path.join(golden, f"{name}_decode.npy"))
+        for native in (True, False):
+            t0 = time.perf_counter()
+            got = jpeg.decode_jpeg(data, native=native)
+            ms = (time.perf_counter() - t0) * 1e3
+            path_name = "native" if native else "Python"
+            times[f"{name}.jpg {path_name}"] = ms
+            same = got.shape == want.shape and np.array_equal(got, want)
+            log(f"[formats {name}.jpg] {len(data)} bytes, "
+                f"{'x'.join(map(str, got.shape))}, {path_name} entropy "
+                f"path {ms:.2f} ms, equal to Pillow's decode {same}")
+            if not same:
+                raise AssertionError(f"{name}.jpg ({path_name}) differs "
+                                     "from Pillow's decode")
+    return times
+
+
+def formats_phase(knot7, dev="cuda", size=(480, 270), total_samples=None):
+    """Phase 23: every scene and image format on the card (see the module
+    docstring). knot7: phase 7's printed (PSNR, FLIP)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from neural_renderer_tpu_torch import config as nr_config
+    from neural_renderer_tpu_torch.cli import compare_images, evaluate
+    from neural_renderer_tpu_torch.metrics.image_io import (encode_png,
+                                                            load_image)
+    from neural_renderer_tpu_torch.ops import (lane_grid_kernel,
+                                               trace_cluster, trace_pallas,
+                                               traversal)
+    from neural_renderer_tpu_torch.render.renderer import (RenderBasis,
+                                                           Renderer)
+    from neural_renderer_tpu_torch.scene import mesh_loader
+    from neural_renderer_tpu_torch.scene.scene import Scene
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from jpeg_writer import encode_jpeg
+    from mesh_writers import write_fbx, write_ply, write_stl
+
+    # (a) the decoders
+    t0 = time.perf_counter()
+    decoders_check()
+    log(f"[formats decoders] {time.perf_counter() - t0:.2f} s")
+
+    counters = {
+        "K1": trace_cluster.sweep_clusters_stream,
+        "K2": lane_grid_kernel.forward_lane, "K3": trace_pallas.trace_dense,
+        "K4": trace_pallas.sweep_shells_dense,
+        "K5": trace_cluster.trace_clusters_stream}
+    cli_args = ["--width", str(size[0]), "--height", str(size[1])]
+    if total_samples:
+        cli_args += ["--total-samples", str(total_samples), "--batch-spp",
+                     str(total_samples)]
+    if dev != "cuda":
+        cli_args += ["--device", dev]
+    out_root = os.path.join(ROOT, "comparison_output", "smoke_formats")
+
+    def evaluate_counted(cfg_path, label, *extra):
+        for f in counters.values():
+            f.launches = 0
+        out_dir = f"{out_root}_{label}"
+        with pass_launches(counters) as passes:
+            text = run_evaluate(evaluate, [cfg_path, *cli_args, "--output",
+                                           out_dir, *extra])
+        psnr, flip = parse_metrics(text)
+        rates = re.findall(r"(Ground truth|Neural): ([0-9.]+) Mrays/s", text)
+        log(f"[formats evaluate {label} {size[0]}x{size[1]}] PSNR {psnr!r} "
+            f"dB, FLIP {flip!r}, Mrays/s {rates}, launches per pass "
+            f"{passes}")
+        if set(passes) != {"gt", "neural"}:
+            raise AssertionError(f"{label}: a pass is missing: {passes}")
+        return psnr, flip, passes, out_dir
+
+    with tempfile.TemporaryDirectory(prefix="nr_formats_") as tmp:
+        # (b) the knot from PLY, STL and FBX
+        t0 = time.perf_counter()
+        knot_dir = os.path.join(ROOT, "configs", "knot")
+        objs = {k: mesh_loader.load_mesh_auto(os.path.join(knot_dir,
+                                                           f"{k}.obj"))
+                for k in ("original", "outer", "inner")}
+        o = objs["original"]
+        files = {"original": os.path.join(tmp, "original.ply"),
+                 "outer": os.path.join(tmp, "outer.stl"),
+                 "inner": os.path.join(tmp, "inner.fbx")}
+        write_ply(files["original"], o.vertices, o.indices, o.normals)
+        write_stl(files["outer"], objs["outer"].vertices,
+                  objs["outer"].indices)
+        write_fbx(files["inner"], objs["inner"].vertices,
+                  objs["inner"].indices)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = {k: mesh_loader.load_mesh_auto(p) for k, p in files.items()}
+        t_load = time.perf_counter() - t0
+        ply = loaded["original"]
+        ply_exact = all(
+            getattr(ply, n).dtype == getattr(o, n).dtype
+            and np.array_equal(getattr(ply, n).view(np.uint32),
+                               getattr(o, n).view(np.uint32))
+            for n in ("vertices", "indices", "normals"))
+        shells = {}
+        for key in ("outer", "inner"):
+            a = loaded[key].vertices[loaded[key].indices.astype(np.int64)]
+            b = objs[key].vertices[objs[key].indices.astype(np.int64)]
+            differ = a.view(np.uint32) != b.view(np.uint32)
+            shells[key] = dict(
+                triangles=a.shape[0], equal=a.shape == b.shape
+                and bool(np.array_equal(a, b)),
+                bits_differ=int(differ.sum()),
+                differ_are_signed_zeros=bool((b[differ] == 0).all()))
+        log(f"[formats knot] wrote PLY/STL/FBX in {t_write:.2f} s, loaded "
+            f"in {t_load:.2f} s ({ {k: os.path.getsize(p) for k, p in files.items()} } "
+            f"bytes); PLY arrays equal the OBJ's bit for bit {ply_exact}; "
+            f"shells {shells}")
+        if not (ply_exact and all(s["equal"] and s["differ_are_signed_zeros"]
+                                  for s in shells.values())):
+            raise AssertionError("the knot's PLY/STL/FBX meshes differ from "
+                                 "the OBJ loader's")
+        cfg = json.load(open(os.path.join(knot_dir, "knot_lane.json")))
+        for key, mesh_key in (("original", "original_mesh"),
+                              ("inner", "inner_shell"),
+                              ("outer", "outer_shell")):
+            cfg["scene"][mesh_key]["path"] = files[key]
+        cfg["checkpoint_path"] = os.path.join(knot_dir, cfg["checkpoint_path"])
+        knot_cfg = os.path.join(tmp, "knot_formats.json")
+        with open(knot_cfg, "w") as f:
+            json.dump(cfg, f)
+        psnr, flip, passes, _ = evaluate_counted(knot_cfg, "knot")
+        if not (passes["gt"]["K5"] > 0 and passes["neural"]["K1"] > 0
+                and passes["neural"]["K2"] > 0):
+            raise AssertionError(f"the knot from PLY/STL/FBX did not run "
+                                 f"through K5, K1 and K2: {passes}")
+        if not (psnr >= KNOT_GATE["psnr"] and flip <= KNOT_GATE["flip"]):
+            raise AssertionError("the knot from PLY/STL/FBX misses the "
+                                 f"quality gate {KNOT_GATE}")
+        if (psnr, flip) != tuple(knot7):
+            raise AssertionError(f"the knot from PLY/STL/FBX prints PSNR "
+                                 f"{psnr} / FLIP {flip}, phase 7 {knot7}")
+        log(f"[formats knot] PSNR {psnr!r} dB, FLIP {flip!r}: phase 7's "
+            f"{knot7} to the printed digit ({time.perf_counter() - t0:.2f}"
+            " s)")
+
+        # (c) the studio under a JPEG sky and a DWAB sky
+        studio_dir = os.path.join(ROOT, "configs", "studio")
+        base = json.load(open(os.path.join(studio_dir, "studio_lane.json")))
+        for mesh_key in ("original_mesh", "inner_shell", "outer_shell",
+                         "additional_mesh"):
+            base["scene"][mesh_key]["path"] = os.path.join(
+                studio_dir, base["scene"][mesh_key]["path"])
+        base["checkpoint_path"] = os.path.join(studio_dir,
+                                               base["checkpoint_path"])
+        studio = {}
+        for label, sky in FORMATS_STUDIO_SKIES:
+            t0 = time.perf_counter()
+            base["environment"]["hdri_path"] = os.path.join(
+                ROOT, "tests", "golden", sky)
+            cfg_path = os.path.join(tmp, f"studio_{label}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(base, f)
+            scfg = nr_config.load_config(cfg_path)
+            scene = Scene.from_config(scfg)
+            env = scene.environment
+            if not (env.is_valid and scene.environment_error is None):
+                raise AssertionError(f"the {sky} sky did not load")
+            rend = Renderer(scene, scfg.neural_network, device=dev)
+            if not rend.load_weights_from_file(scfg.checkpoint_path):
+                raise AssertionError("the studio weights do not load")
+            rend.set_use_additional_mesh(False)
+            pos, yaw, pitch = nr_config.matrix_to_camera_state(
+                scfg.camera.matrix)
+            rend.set_camera_basis(RenderBasis(
+                *nr_config.camera_basis_from_state(yaw, pitch,
+                                                   scfg.camera.yfov)))
+            rend.set_bounce_count(scfg.rendering.bounce_count)
+            rend.set_envmap_rotation(scfg.environment.rotation)
+            rend.resize(*size)
+            frames = {}
+            for pass_label, neural in (("ground truth", False),
+                                       ("neural", True)):
+                rend.set_use_neural_query(neural)
+                img_k = rend.render_accumulate(pos, 2, batch_spp=1)
+                with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                               traversal):
+                    img_t = rend.render_accumulate(pos, 2, batch_spp=1)
+                diff = abs(img_k.astype(int) - img_t.astype(int))
+                frames[pass_label] = dict(
+                    share_above_3=float((diff > 3).mean()),
+                    mean=float(diff.mean()), max=int(diff.max()),
+                    mean_u8=float(img_k.mean()))
+                if not (frames[pass_label]["share_above_3"] < 0.02
+                        and frames[pass_label]["mean"] < 1.0
+                        and img_k.std() > 1.0):
+                    raise AssertionError(f"studio under {sky}: the "
+                                         f"{pass_label} kernel frame differs "
+                                         "from the twin frame")
+            log(f"[formats studio {label} sky {env.width}x{env.height}] "
+                f"kernels vs twins {frames}")
+            psnr, flip, passes, out_dir = evaluate_counted(
+                cfg_path, f"studio_{label}", "--no-additional")
+            if any(passes[p][k] != 0 for p in passes for k in ("K1", "K5")):
+                raise AssertionError(f"studio {label}: a clustered kernel "
+                                     f"launched: {passes}")
+            if not (passes["gt"]["K3"] > 0 and passes["neural"]["K4"] > 0
+                    and passes["neural"]["K2"] > 0):
+                raise AssertionError(f"studio {label}: no K3 / K4 / K2 "
+                                     f"launch: {passes}")
+            studio[label] = dict(psnr=psnr, flip=flip, out_dir=out_dir)
+            log(f"[formats studio {label}] {time.perf_counter() - t0:.2f} s")
+
+        # (d) compare_images on the card
+        t0 = time.perf_counter()
+
+        def compare(ref, test):
+            argv = [ref, test] + ([] if dev == "cuda" else ["--device", dev])
+            text = run_cli(compare_images.main, argv)
+            return (*parse_metrics(text), "Detected Y-flipped" in text)
+
+        for label, run in studio.items():
+            gt = os.path.join(run["out_dir"], "ground_truth.png")
+            nn = os.path.join(run["out_dir"], "neural.png")
+            got = compare(gt, nn)
+            if got != (run["psnr"], run["flip"], False):
+                raise AssertionError(f"compare_images on the {label} pass "
+                                     f"prints {got}, evaluate printed "
+                                     f"{run['psnr']} / {run['flip']}")
+        run = studio["jpeg"]
+        neural = load_image(os.path.join(run["out_dir"], "neural.png"))
+        jpg = os.path.join(tmp, "neural.jpg")
+        with open(jpg, "wb") as f:
+            f.write(encode_jpeg(neural, quality=95))
+        flipped = os.path.join(tmp, "neural_flipped.png")
+        with open(flipped, "wb") as f:
+            f.write(encode_png(neural[::-1]))
+        gt = os.path.join(run["out_dir"], "ground_truth.png")
+        as_jpeg = compare(gt, jpg)
+        as_flipped = compare(gt, flipped)
+        log(f"[formats compare_images] PNG pairs as evaluate printed; the "
+            f"neural image as JPEG (q95): PSNR {as_jpeg[0]!r}, FLIP "
+            f"{as_jpeg[1]!r}; flipped: {as_flipped} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if as_jpeg[2] or abs(as_jpeg[0] - run["psnr"]) > 1.0:
+            raise AssertionError("compare_images on the JPEG neural image "
+                                 f"is off: {as_jpeg}")
+        if as_flipped != (run["psnr"], run["flip"], True):
+            raise AssertionError("compare_images did not undo the flip: "
+                                 f"{as_flipped}")
+    if dev == "cuda":
+        torch.cuda.synchronize()
 
 def k5_items(label, trace_cluster, bounds, args, mode, t, tri, swept, ms,
              kernel, mxu):

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from .image_io import save_png
+from .image_io import encode_png
 
 
 def calculate_ppd(monitor_distance: float = 0.7, resolution_x: float = 3840.0,
@@ -279,5 +279,7 @@ def magma_u8(values: np.ndarray) -> np.ndarray:
 
 
 def save_flip_visualization(error_map: np.ndarray, path: str):
-    """Magma-colormap error visualization PNG."""
-    save_png(path, magma_u8(error_map))
+    """Magma-colormap error visualization PNG, written without a message
+    (as the reference writes it)."""
+    with open(path, "wb") as f:
+        f.write(encode_png(magma_u8(error_map)))

@@ -1,8 +1,8 @@
 """PNG writing and reading with the standard library (`zlib` + `struct`).
 
 Counterpart of `neural_renderer_tpu/metrics/image_io.py`, which goes through
-`imageio`; this package writes and reads PNG itself, so it needs nothing
-beyond numpy. The writer emits 8-bit RGB, non-interlaced, filter 0; the
+`imageio`; this package writes and reads PNG itself (and JPEG through
+`metrics/jpeg.py`), so it needs nothing beyond numpy. The writer emits 8-bit RGB, non-interlaced, filter 0; the
 reader takes every bit depth and colour type, non-interlaced, all five
 filters, and can return the pixels as imageio gives them (textures).
 """
@@ -170,6 +170,14 @@ def decode_png(data: bytes, rgb: bool = True) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Load a PNG as uint8 [H, W, 3]."""
+    """Load a PNG or JPEG (told apart by their signatures) as uint8
+    [H, W, 3], grey replicated."""
+    from .jpeg import JPEG_SOI, decode_jpeg
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        data = f.read()
+    if data[:3] != JPEG_SOI:
+        return decode_png(data)
+    img = decode_jpeg(data)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    return img

@@ -1,12 +1,12 @@
-"""Environment maps: Radiance .hdr (RGBE + RLE), EXR and PNG loading, and
-the device container.
+"""Environment maps: Radiance .hdr (RGBE + RLE), EXR, PNG and JPEG loading,
+and the device container.
 
 Port of `neural_renderer_tpu/scene/envmap.py`: `decode_rgbe`, `load_hdr`
 (the native RLE decoder `csrc/hdr_rle.cpp`, built at first use by
 `utils/native.py`, with the Python decoder where no host compiler exists),
 `_load_exr` (this package's own reader, `scene/exr.py`; no fallback decoder,
 so a file it refuses raises), `_load_ldr` (PNG through
-`metrics/image_io.decode_png`; JPEG has no decoder here yet and raises),
+`metrics/image_io.decode_png`, JPEG through `metrics/jpeg.decode_jpeg`),
 `EnvironmentMap` and `EnvmapArrays` -> `EnvironmentTensors`. A map is
 channel-major [3, H*W]; an invalid one selects the procedural sky.
 """
@@ -166,15 +166,16 @@ def _load_exr(path: str) -> np.ndarray:
 
 
 def _load_ldr(path: str) -> np.ndarray:
-    """PNG -> float32 [H, W, 3]: uint8 / 255, uint16 / 65535, grey
+    """PNG or JPEG -> float32 [H, W, 3]: uint8 / 255, uint16 / 65535, grey
     replicated."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise NotImplementedError(
-            f"'{path}': JPEG environment maps need a JPEG decoder, not "
-            "ported yet (the reference reads them with imageio)")
     from ..metrics.image_io import decode_png
+    from ..metrics.jpeg import decode_jpeg
     with open(path, "rb") as f:
-        img = decode_png(f.read(), rgb=False)
+        raw = f.read()
+    if os.path.splitext(path)[1].lower() == ".png":
+        img = decode_png(raw, rgb=False)
+    else:
+        img = decode_jpeg(raw)
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0
     elif img.dtype == np.uint16:

@@ -1,10 +1,10 @@
 """Minimal OpenEXR scanline reader.
 
-Port of `neural_renderer_tpu/scene/exr.py` (`read_exr`, `ExrError`), a copy
-but for the DWAA / DWAB branch (`exr_dwa.py` is not ported yet: such a file
-raises ExrError). Scope: single-part scanline files, NONE / RLE / ZIPS /
-ZIP / PIZ / PXR24 / B44 / B44A compression, HALF / FLOAT / UINT channels, no
-subsampling. PIZ and PXR24 live in exr_piz.py, B44/B44A in exr_b44.py.
+Port of `neural_renderer_tpu/scene/exr.py` (`read_exr`, `ExrError`), a copy.
+Scope: single-part scanline files, NONE / RLE / ZIPS / ZIP / PIZ / PXR24 /
+B44 / B44A / DWAA / DWAB compression, HALF / FLOAT / UINT channels, no
+subsampling. PIZ and PXR24 live in exr_piz.py, B44/B44A in exr_b44.py,
+DWAA/DWAB in exr_dwa.py.
 Unlike the reference's environment loader, nothing falls back to another
 decoder: a file this reader refuses raises ExrError.
 Layout reference: the OpenEXR file-format notes (openexr.com,
@@ -21,7 +21,8 @@ import numpy as np
 MAGIC = 20000630
 _PIX_DTYPE = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}
 # NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44, B44A, DWAA, DWAB
-_LINES_PER_BLOCK = {0: 1, 1: 1, 2: 1, 3: 16, 4: 32, 5: 16, 6: 32, 7: 32}
+_LINES_PER_BLOCK = {0: 1, 1: 1, 2: 1, 3: 16, 4: 32, 5: 16, 6: 32, 7: 32,
+                    8: 32, 9: 256}
 _COMP_NAMES = {6: "B44", 7: "B44A", 8: "DWAA", 9: "DWAB"}
 
 
@@ -131,8 +132,8 @@ def _read_exr(path: str) -> np.ndarray:
     comp = attrs["compression"][1][0]
     if comp not in _LINES_PER_BLOCK:
         raise ExrError(f"{_COMP_NAMES.get(comp, comp)} compression "
-                       "unsupported (NONE/RLE/ZIPS/ZIP/PIZ/PXR24/B44/B44A "
-                       "only)")
+                       "unsupported (NONE/RLE/ZIPS/ZIP/PIZ/PXR24/B44/B44A/"
+                       "DWAA/DWAB only)")
     lines_per = _LINES_PER_BLOCK[comp]
 
     xmin, ymin, xmax, ymax = struct.unpack_from("<iiii",
@@ -189,6 +190,13 @@ def _read_exr(path: str) -> np.ndarray:
                     raw = b44_uncompress_block(raw, chans, width, ny)
                 except B44Error as e:
                     raise ExrError(f"B44 block: {e}") from e
+        elif comp in (8, 9):  # DWAA / DWAB (lossy DCT; exr_dwa.py)
+            if size < expect:
+                from .exr_dwa import DwaError, dwa_uncompress_block
+                try:
+                    raw = dwa_uncompress_block(raw, chans, width, ny)
+                except DwaError as e:
+                    raise ExrError(f"DWA block: {e}") from e
         if len(raw) < expect:
             raise ExrError("truncated scanline block")
         bp = 0

@@ -147,6 +147,20 @@ class HostMesh:
         return (self.vertices.min(axis=0).astype(np.float32),
                 self.vertices.max(axis=0).astype(np.float32))
 
+    def normalize(self):
+        """Center at the origin and scale so the largest extent is 10."""
+        if self.vertices.shape[0] == 0:
+            return
+        vmin = self.vertices.min(axis=0)
+        vmax = self.vertices.max(axis=0)
+        extent = float((vmax - vmin).max())
+        if extent <= 0.0:
+            return
+        center = 0.5 * (vmin + vmax)
+        self.vertices = ((self.vertices - center)
+                         * (2.0 / extent * 5.0)).astype(np.float32)
+        self._bvh = None
+
     def scale(self, s: float):
         if s != 1.0:
             self.vertices = (self.vertices * np.float32(s)).astype(np.float32)

@@ -1,4 +1,4 @@
-"""Mesh loading: glTF 2.0 / GLB with PBR materials, and Wavefront OBJ.
+"""Mesh loading: glTF 2.0 / GLB with PBR materials, OBJ, PLY, STL and FBX.
 
 Port of `neural_renderer_tpu/scene/mesh_loader.py`:
   * glTF / GLB (`load_gltf_with_materials`): GLB chunks, external buffers
@@ -7,19 +7,20 @@ Port of `neural_renderer_tpu/scene/mesh_loader.py`:
     (base colour and normal textures, emissive, the transmission / IOR /
     emissive-strength extensions; the metallic-roughness texture is read as
     the constant factors, as the reference does) and embedded or external
-    PNG images, decoded by `metrics/image_io.decode_png` to the dtype and
-    channels imageio gives the reference. An image that is not a PNG raises
-    MeshLoadError (no JPEG decoder is ported yet); a PNG that fails to
-    decode is reported and replaced by one black texel, as the reference
-    does;
+    PNG and JPEG images, decoded by `metrics/image_io.decode_png` and
+    `metrics/jpeg.decode_jpeg` to the dtype and channels imageio gives the
+    reference. An image that fails to decode is reported and replaced by
+    one black texel, as the reference does;
   * OBJ (`load_obj`, `_parse_obj_python`, `_smooth_normals`): geometry only,
     one primitive with the global material (-1), smooth vertex normals
     generated when the file has none. The native parser
     `csrc/obj_parser.cpp` is compiled with the host compiler at first use
     and gives the Python parser's output exactly; without a compiler the
-    Python parser runs.
-FBX, PLY and STL are not ported yet and raise MeshLoadError naming the
-loader still to port.
+    Python parser runs;
+  * PLY and STL (`load_ply_stl`, parsers in `scene/ply_stl_loader.py`) and
+    binary FBX (`load_fbx`, `scene/fbx_loader.py`): geometry only, like OBJ.
+Every loader takes `normalize` (fit the mesh to an extent of 10 about the
+origin, `HostMesh.normalize`) and then `scale`.
 """
 
 from __future__ import annotations
@@ -37,10 +38,6 @@ import numpy as np
 
 from .materials import Material, MaterialParam, MaterialParamVec3
 from .mesh import HostMesh
-
-_UNPORTED = {".fbx": "load_fbx", ".ply": "load_ply_stl",
-             ".stl": "load_ply_stl"}
-
 
 class MeshLoadError(RuntimeError):
     pass
@@ -165,9 +162,11 @@ def _trs_matrix(node: dict) -> np.ndarray:
 
 def _load_gltf_image(gltf: dict, buffers: list[bytes], base_dir: str,
                      image: dict) -> np.ndarray | None:
-    """An image's pixels as decode_png(rgb=False) gives them, or None (a
-    PNG that fails to decode, reported on stderr)."""
-    from ..metrics.image_io import PNG_SIGNATURE, decode_png
+    """An image's pixels as imageio gives them (decode_png(rgb=False), or
+    decode_jpeg for data that starts with the JPEG SOI marker), or None (an
+    image that fails to decode, reported on stderr)."""
+    from ..metrics.image_io import decode_png
+    from ..metrics.jpeg import JPEG_SOI, decode_jpeg
     try:
         if "uri" in image:
             uri = image["uri"]
@@ -183,10 +182,8 @@ def _load_gltf_image(gltf: dict, buffers: list[bytes], base_dir: str,
                                                  + view["byteLength"]])
         else:
             return None
-        if raw[:8] != PNG_SIGNATURE:
-            raise MeshLoadError(
-                f"glTF image ({image.get('mimeType', 'not a PNG')}): only "
-                "PNG images have a decoder here; JPEG is not ported yet")
+        if raw[:3] == JPEG_SOI:
+            return decode_jpeg(raw)
         return decode_png(raw, rgb=False)
     except (OSError, ValueError, struct.error, zlib.error) as e:
         print(f"GLTF Warning: failed to load image: {e}", file=sys.stderr)
@@ -239,7 +236,8 @@ def _gltf_material(gmat: dict, textures_src: list[int]) -> Material:
     return mat
 
 
-def load_gltf_with_materials(path: str, scale: float = 1.0) -> HostMesh:
+def load_gltf_with_materials(path: str, normalize: bool = False,
+                             scale: float = 1.0) -> HostMesh:
     base_dir = os.path.dirname(os.path.abspath(path))
     if path.lower().endswith(".glb"):
         gltf, glb_bin = _read_glb(path)
@@ -338,6 +336,8 @@ def load_gltf_with_materials(path: str, scale: float = 1.0) -> HostMesh:
     mesh.indices = np.concatenate(indices, axis=0)
     mesh.material_map = np.asarray(material_map, dtype=np.uint32)
     mesh.material_ids = np.asarray(material_ids, dtype=np.int32)
+    if normalize:
+        mesh.normalize()
     mesh.scale(scale)
     return mesh
 
@@ -347,7 +347,8 @@ def load_gltf_with_materials(path: str, scale: float = 1.0) -> HostMesh:
 # ---------------------------------------------------------------------------
 
 
-def load_obj(path: str, scale: float = 1.0) -> HostMesh:
+def load_obj(path: str, normalize: bool = False,
+             scale: float = 1.0) -> HostMesh:
     parsed = _parse_obj_native(path)
     if parsed is None:
         parsed = _parse_obj_python(path)
@@ -365,6 +366,8 @@ def load_obj(path: str, scale: float = 1.0) -> HostMesh:
         mesh.normals = _smooth_normals(mesh.vertices, mesh.indices)
     mesh.material_map = np.zeros(1, dtype=np.uint32)
     mesh.material_ids = np.full(1, -1, dtype=np.int32)
+    if normalize:
+        mesh.normalize()
     mesh.scale(scale)
     return mesh
 
@@ -517,28 +520,82 @@ def _smooth_normals(vertices: np.ndarray, indices: np.ndarray) -> np.ndarray:
                     np.array([0, 1, 0], np.float32)).astype(np.float32)
 
 
-def load_mesh_auto(path: str, scale: float = 1.0) -> HostMesh:
-    """Dispatch on the file extension."""
+def _geometry_mesh(vertices, indices, normals, normalize: bool,
+                   scale: float) -> HostMesh:
+    """A geometry-only mesh: one primitive with the global material (-1),
+    smooth normals where the file has none."""
+    mesh = HostMesh(vertices=vertices.astype(np.float32),
+                    indices=indices.astype(np.uint32))
+    mesh.normals = (_smooth_normals(mesh.vertices, mesh.indices)
+                    if normals is None else normals.astype(np.float32))
+    mesh.material_map = np.zeros(1, np.uint32)
+    mesh.material_ids = np.full(1, -1, np.int32)
+    if normalize:
+        mesh.normalize()
+    mesh.scale(scale)
+    return mesh
+
+
+def load_ply_stl(path: str, normalize: bool = False,
+                 scale: float = 1.0) -> HostMesh:
+    """PLY (ascii and binary; fan-triangulated polygons, optional vertex
+    normals) or STL (binary and ascii, exact-duplicate vertices welded)."""
+    from .ply_stl_loader import (GeometryParseError, load_ply_geometry,
+                                 load_stl_geometry)
+    loader = (load_ply_geometry
+              if os.path.splitext(path)[1].lower() == ".ply"
+              else load_stl_geometry)
+    try:
+        vertices, indices, normals = loader(path)
+    except (GeometryParseError, struct.error, KeyError, IndexError) as e:
+        raise MeshLoadError(f"{path}: {e}") from e
+    return _geometry_mesh(vertices, indices, normals, normalize, scale)
+
+
+def load_fbx(path: str, normalize: bool = False,
+             scale: float = 1.0) -> HostMesh:
+    """Binary FBX: every geometry pre-transformed by its model chain, fan
+    triangulated, the file's normals or smooth ones."""
+    from .fbx_loader import FbxError, load_fbx_geometry
+    try:
+        vertices, indices, normals = load_fbx_geometry(path)
+    except FbxError as e:
+        raise MeshLoadError(str(e)) from e
+    return _geometry_mesh(vertices, indices, normals, normalize, scale)
+
+
+def load_mesh_from_file(path: str, normalize: bool = False,
+                        scale: float = 1.0) -> HostMesh:
+    """OBJ, FBX, PLY or STL by the file extension."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".obj":
-        return load_obj(path, scale=scale)
-    if ext in (".gltf", ".glb"):
-        return load_gltf_with_materials(path, scale=scale)
-    if ext in _UNPORTED:
-        raise MeshLoadError(
-            f"'{ext}' meshes are not ported yet (neural_renderer_tpu/scene/"
-            f"mesh_loader.py::{_UNPORTED[ext]}): {path}")
+        return load_obj(path, normalize=normalize, scale=scale)
+    if ext == ".fbx":
+        return load_fbx(path, normalize=normalize, scale=scale)
+    if ext in (".ply", ".stl"):
+        return load_ply_stl(path, normalize=normalize, scale=scale)
     raise MeshLoadError(f"Unsupported mesh format '{ext}': {path}")
 
 
-def load_mesh_labeled(path: str, label: str, scale: float = 1.0,
-                      nearest_tex: bool = False) -> HostMesh | None:
+def load_mesh_auto(path: str, normalize: bool = False,
+                   scale: float = 1.0) -> HostMesh:
+    """Dispatch on the file extension."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".gltf", ".glb"):
+        return load_gltf_with_materials(path, normalize=normalize,
+                                        scale=scale)
+    return load_mesh_from_file(path, normalize=normalize, scale=scale)
+
+
+def load_mesh_labeled(path: str, label: str, normalize: bool = False,
+                      nearest_tex: bool = False,
+                      scale: float = 1.0) -> HostMesh | None:
     """Load a scene mesh with nearest (or bilinear) texture filtering; a
     failure is reported on stderr and gives None."""
     if not path:
         return None
     try:
-        mesh = load_mesh_auto(path, scale=scale)
+        mesh = load_mesh_auto(path, normalize=normalize, scale=scale)
     except (OSError, MeshLoadError) as e:
         print(f"Failed to load {label} mesh '{path}': {e}", file=sys.stderr)
         return None

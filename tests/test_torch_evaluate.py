@@ -183,10 +183,11 @@ def test_evaluate_main_cpu(tmp_path, capsys):
 def test_evaluate_refuses_missing_device_and_unported_inputs(tmp_path,
                                                              capsys):
     """Without a card `evaluate` ends with rc 1 unless given --device cpu.
-    The studio scene loads now (EXR sky, glTF torus); what is still not
-    ported is refused by name: an FBX / PLY / STL mesh, a DWAA / DWAB EXR
-    sky (which `evaluate` refuses with rc 1 rather than render the
-    procedural sky in its place), a JPEG sky."""
+    Every format the JAX package reads loads: the studio scene (EXR sky,
+    glTF torus), a DWAA sky. What the port still refuses is refused by
+    name: a mesh file that does not parse, and an arithmetic-coded JPEG
+    sky, which `evaluate` refuses with rc 1 rather than render the
+    procedural sky in its place."""
     cfg_path = os.path.join(ROOT, "configs", "sphere", "sphere_lane.json")
     if not torch.cuda.is_available():
         assert evaluate.main([cfg_path, "--output", str(tmp_path)]) == 1
@@ -198,7 +199,8 @@ def test_evaluate_refuses_missing_device_and_unported_inputs(tmp_path,
     assert scene.original_mesh.num_triangles == 2304
     from neural_renderer_tpu_torch.scene.mesh_loader import (MeshLoadError,
                                                              load_mesh_auto)
-    with pytest.raises(MeshLoadError, match="load_ply_stl"):
+    (tmp_path / "m.ply").write_bytes(b"ply\nformat ascii 1.0\nend_header\n")
+    with pytest.raises(MeshLoadError, match="PLY missing vertex or face"):
         load_mesh_auto(str(tmp_path / "m.ply"))
     cfg = json.load(open(os.path.join(ROOT, "configs", "studio",
                                       "studio_lane.json")))
@@ -212,17 +214,21 @@ def test_evaluate_refuses_missing_device_and_unported_inputs(tmp_path,
         ROOT, "tests", "golden", "dwaa_reference.exr")
     dwa_cfg = tmp_path / "dwa.json"
     dwa_cfg.write_text(json.dumps(cfg))
+    dwa_scene = Scene.from_config(load_config(str(dwa_cfg)))
+    assert dwa_scene.environment_error is None
+    assert dwa_scene.environment.pixels.shape == (48, 64, 3)
+    jpg = tmp_path / "sky.jpg"
+    # An SOF9 (arithmetic-coded) frame header after SOI.
+    jpg.write_bytes(b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x08\x00\x08"
+                    b"\x01\x01\x11\x00\xff\xd9")
+    cfg["environment"]["hdri_path"] = str(jpg)
+    sky_cfg = tmp_path / "arith.json"
+    sky_cfg.write_text(json.dumps(cfg))
     capsys.readouterr()
-    assert evaluate.main([str(dwa_cfg), "--width", "8", "--height", "8",
+    assert evaluate.main([str(sky_cfg), "--width", "8", "--height", "8",
                           "--device", "cpu", "--output",
                           str(tmp_path / "out")]) == 1
-    assert "DWAA" in capsys.readouterr().err
-    jpg = tmp_path / "sky.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
-    cfg["environment"]["hdri_path"] = str(jpg)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        from neural_renderer_tpu_torch.scene.envmap import EnvironmentMap
-        EnvironmentMap().load_from_file(str(jpg))
+    assert "arithmetic-coded" in capsys.readouterr().err
 
 
 def test_evaluate_studio_cpu(tmp_path, capsys):

@@ -5,10 +5,11 @@ port's reader equals the JAX reader bit for bit on the shipped PIZ sky and
 the PIZ / PXR24 / B44 / B44A golden files; files the port's writer makes
 (NONE / ZIPS / ZIP / PIZ, HALF and FLOAT, RGB and luminance) and those of
 the JAX tests' own writer (RLE, UINT) read back the same in both readers;
-corrupt files and the compressions not ported (DWAA / DWAB) raise ExrError.
+corrupt files raise ExrError (DWAA / DWAB: tests/test_torch_dwa.py).
 HDR: the native decoder (`csrc/hdr_rle.cpp`) and the Python one equal the
 JAX `load_hdr` on RLE and flat files. PNG environment maps equal the JAX
-`_load_ldr` (imageio) for 8- and 16-bit, grey and RGB(A); JPEG raises.
+`_load_ldr` (imageio) for 8- and 16-bit, grey and RGB(A); a JPEG that
+does not decode raises JpegError (JPEG skies: tests/test_torch_jpeg.py).
 The loaders are numpy code; nothing here runs on a device.
 """
 
@@ -93,9 +94,10 @@ def test_rle_and_uint_files_equal_jax(tmp_path, comp, ptype):
 
 
 def test_corrupt_and_unported_files_raise(tmp_path):
-    """Truncation, garbage, a negative attribute size and DWAA / DWAB
-    compression raise ExrError in the port, as in the JAX reader (which
-    decodes DWA; the port does not yet)."""
+    """Truncation, garbage, a negative attribute size and an unknown
+    compression byte raise ExrError in the port, as in the JAX reader, with
+    no fallback decoder behind the reader (a DWA block cut short:
+    tests/test_torch_dwa.py)."""
     p = str(tmp_path / "bad.exr")
     write_exr(p, np.ones((20, 8, 3), np.float32), compression="zip",
               half=False)
@@ -114,13 +116,19 @@ def test_corrupt_and_unported_files_raise(tmp_path):
     open(p, "wb").write(b"NOTEXR" + bytes(64))
     with pytest.raises(texr.ExrError, match="magic"):
         texr.read_exr(p)
-    dwa = os.path.join(ROOT, "tests", "golden", "dwaa_reference.exr")
-    assert jexr.read_exr(dwa).shape[-1] == 3
-    with pytest.raises(texr.ExrError, match="DWAA"):
-        texr.read_exr(dwa)
+    dwa = open(os.path.join(ROOT, "tests", "golden", "dwaa_reference.exr"),
+               "rb").read()
+    key = b"compression\0compression\0"
+    i = dwa.index(key) + len(key) + 4
+    assert dwa[i] == 8
+    open(p, "wb").write(dwa[:i] + bytes([10]) + dwa[i + 1:])
+    with pytest.raises(texr.ExrError, match="compression"):
+        texr.read_exr(p)
+    with pytest.raises(jexr.ExrError, match="compression"):
+        jexr.read_exr(p)
     env = tenv.EnvironmentMap()
     with pytest.raises(texr.ExrError):
-        env.load_from_file(dwa)     # no fallback decoder behind the reader
+        env.load_from_file(p)       # no fallback decoder behind the reader
 
 
 @pytest.mark.parametrize("flat", [False, True])
@@ -197,10 +205,13 @@ def test_png_environment_equals_jax(tmp_path, depth, ctype):
 
 
 def test_jpeg_environment_raises(tmp_path):
+    """A .jpg sky that is not a decodable JPEG raises; it does not turn
+    into the procedural sky."""
+    from neural_renderer_tpu_torch.metrics.jpeg import JpegError
     p = str(tmp_path / "env.jpg")
     with open(p, "wb") as f:
         f.write(b"\xff\xd8\xff\xe0" + bytes(32))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(JpegError):
         tenv.EnvironmentMap().load_from_file(p)
 
 

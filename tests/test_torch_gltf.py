@@ -328,9 +328,10 @@ def test_select_closest_hits_exact():
 
 
 def test_unported_image_and_formats_raise(tmp_path):
-    """A JPEG image in a glTF, and FBX / PLY / STL files, name what is not
-    ported; a PNG that does not decode becomes one black texel (a warning),
-    as in the reference."""
+    """An image that does not decode (a JPEG cut short, a PNG cut short)
+    becomes one black texel with a warning, as in the reference; FBX / PLY /
+    STL files load, so a missing one raises OSError as in the JAX loader,
+    and an unknown extension raises MeshLoadError."""
     payload = _binary_payload()
     gltf = _build_gltf_dict(len(payload))
     jpeg = b"\xff\xd8\xff\xe0" + bytes(16)
@@ -340,14 +341,17 @@ def test_unported_image_and_formats_raise(tmp_path):
     gltf["buffers"][0]["byteLength"] = len(payload) + len(jpeg)
     path = str(tmp_path / "jpeg.glb")
     _glb(path, gltf, payload + jpeg)
-    with pytest.raises(tml.MeshLoadError, match="JPEG"):
-        tml.load_gltf_with_materials(path)
+    mesh = tml.load_gltf_with_materials(path)
+    assert len(mesh.textures) == 1 and mesh.textures[0].shape == (1, 1, 3)
     bad_png = b"\x89PNG\r\n\x1a\n" + bytes(16)
     gltf["bufferViews"][4]["byteLength"] = len(bad_png)
     _glb(path, gltf, payload + bad_png)
     mesh = tml.load_gltf_with_materials(path)
     assert len(mesh.textures) == 1 and mesh.textures[0].shape == (1, 1, 3)
-    for ext, loader in ((".fbx", "load_fbx"), (".ply", "load_ply_stl"),
-                        (".stl", "load_ply_stl")):
-        with pytest.raises(tml.MeshLoadError, match=loader):
+    for ext in (".fbx", ".ply", ".stl"):
+        with pytest.raises(OSError):
             tml.load_mesh_auto(str(tmp_path / f"m{ext}"))
+        with pytest.raises(OSError):
+            jml.load_mesh_auto(str(tmp_path / f"m{ext}"))
+    with pytest.raises(tml.MeshLoadError, match="Unsupported mesh format"):
+        tml.load_mesh_auto(str(tmp_path / "m.3ds"))
