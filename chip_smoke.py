@@ -189,7 +189,29 @@ its training. Phases, each failing the run:
      print what `evaluate` printed, on a JPEG of the neural image
      (scripts/jpeg_writer.py) must stay within 1 dB, and on the neural
      image flipped upside down must detect the flip and print the
-     unflipped pair's numbers.
+     unflipped pair's numbers;
+ 24. the viewer on the lane sphere (configs/sphere/sphere_lane.json, S=16,
+     the 24k-step weights) at 1920x1080, counters at 0 before each run
+     that counts: (a) `viewer --headless 4` through its main, 1 spp a
+     frame: the accumulation must reach 4 spp, K1 and K2 must launch;
+     Mrays/s and fps per frame; (b) the same four frames with the
+     denoiser: the card's denoised u8 image within 1 step of
+     `bilateral_denoise` of the same accumulation and guides on the CPU
+     (the share of differing pixels logged), and the denoise's own time
+     (CUDA events); (c) the Lambert view, ground truth and neural, at
+     480x270 through the kernels and through the twins on the card (ground
+     truth identical, neural within phase 3's bounds), the inner shell as
+     the classic mesh through K3, and the times at 1920x1080; (d)
+     `--bench-motion 3 --motion-drop 4` (a 480x270 preview, then the
+     config's 64 spp at rest): preview fps, median frame ms, rest Mrays/s;
+     (e) train-while-render, `--headless 3 --train-steps 4 --train-batch
+     16384` at 480x270 warm-started from the weights: finite losses, the
+     accumulation restarting every frame, K1, K2, K5 and K6 launching, the
+     checkpoint written and resumed by `cli/train.py --resume`; train steps
+     per second; (f) `profile_renderer` tables, ground truth and neural:
+     every category the JAX profiler fills for the branch above 0, the
+     ratio of their sum to the whole frame's time; (g) `memory_stats()`
+     and the phase's `torch.cuda.max_memory_allocated`.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -1667,6 +1689,11 @@ def main() -> int:
     formats_phase(knot7)
     log(f"[phase 23] {time.perf_counter() - t23:.1f} s")
 
+    # ---- 24. the viewer -----------------------------------------------------
+    t24 = time.perf_counter()
+    viewer_phase(smi)
+    log(f"[phase 24] {time.perf_counter() - t24:.1f} s")
+
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
                 "K4-MXU", "K5-MXU", *(k for k in kernels
@@ -2703,6 +2730,200 @@ def library_backward(net, x, g, lane_grid_kernel):
         d_t.index_add_(0, flat, (d_enc[feature] * wcs).reshape(-1))
         return d_t, grads[1:]
     return run
+
+
+# What the JAX profiler fills on each branch without an additional mesh
+# (neural_renderer_tpu/render/profiler.py).
+PROFILE_CATEGORIES = {
+    False: ("primaryTrace", "initPathState", "sampleBounce", "bounceTrace",
+            "integrateBounce", "finalize"),
+    True: ("shellTrace", "neuralForward", "initPathState", "sampleBounce",
+           "earlyTermination", "integrateBounce", "finalize")}
+
+
+def viewer_phase(smi, dev="cuda", size=(W, H), small=(480, 270)):
+    """Phase 24: the viewer on the lane sphere (see the module docstring).
+    `size` is the full frame, `small` the 480x270 one."""
+    import argparse
+    import numpy as np
+    import torch
+    from neural_renderer_tpu_torch.cli import train as train_cli
+    from neural_renderer_tpu_torch.cli import viewer
+    from neural_renderer_tpu_torch.metrics import load_image
+    from neural_renderer_tpu_torch.ops import (denoise, lane_grid_kernel,
+                                               lane_grid_train_kernel,
+                                               trace_cluster, trace_pallas,
+                                               traversal)
+    from neural_renderer_tpu_torch.render.profiler import profile_renderer
+    on_gpu = torch.device(dev).type == "cuda"
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = os.path.join(ROOT, "configs", "sphere", "sphere_lane.json")
+    out = os.path.join(ROOT, "comparison_output", "smoke_viewer")
+    fw, fh = (str(v) for v in size)
+    sw, sh = (str(v) for v in small)
+    counters = {"K1": trace_cluster.sweep_clusters_stream,
+                "K2": lane_grid_kernel.forward_lane,
+                "K3": trace_pallas.trace_dense,
+                "K5": trace_cluster.trace_clusters_stream,
+                "K6": lane_grid_train_kernel.backward_lane}
+
+    def counted(argv, keep=lambda line: True):
+        for f in counters.values():
+            f.launches = 0
+        text = run_cli(viewer.main, argv + ["--device", dev], keep)
+        return text, {k: f.launches for k, f in counters.items()}
+
+    frame_re = (r"frame \d+: (\d+) spp accumulated, ([0-9.]+) Mrays/s, "
+                r"([0-9.]+) fps")
+
+    # (a) headless, neural, 1 spp a frame
+    text, la = counted([cfg, "--headless", "4", "--width", fw, "--height",
+                        fh, "--output", out + "_a"])
+    frames = re.findall(frame_re, text)
+    img = load_image(os.path.join(out + "_a", "viewer_final.png"))
+    log(f"[viewer headless {fw}x{fh}] spp, Mrays/s, fps per frame "
+        f"{frames}, launches {la} ({smi})")
+    if [int(f[0]) for f in frames] != [1, 2, 3, 4]:
+        raise AssertionError("the headless viewer did not reach 4 spp")
+    if not (la["K1"] > 0 and la["K2"] > 0):
+        raise AssertionError(f"the viewer's frames missed K1 or K2: {la}")
+    if img.shape != (size[1], size[0], 3) or not img.std() > 1.0:
+        raise AssertionError("the viewer's final image is malformed")
+
+    # (b) the same four frames, denoised
+    rend_args = argparse.Namespace(config=cfg, device=dev, width=size[0],
+                                   height=size[1], spp=1, ckpt="")
+    _, rend, ctl, basis = viewer.build_renderer(rend_args)
+    rend.set_camera_basis(basis())
+    pos = ctl.camera.position
+    rend.set_denoise(True)
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        img_d = rend.render(pos)
+        walls.append(time.perf_counter() - t0)
+    acc = rend._accum.reshape(3, size[1], size[0])
+    normals, albedo = rend._guides
+    t0 = time.perf_counter()
+    ref = denoise.bilateral_denoise(acc.cpu(), rend.accum_sample_count,
+                                    normals.cpu(), albedo.cpu()).numpy()
+    cpu_s = time.perf_counter() - t0
+    diff = np.abs(img_d.astype(int) - ref.astype(int))
+    den_ms = time_ms(lambda: denoise.bilateral_denoise(
+        acc, rend.accum_sample_count, normals, albedo), reps=5)
+    log(f"[viewer denoise {fw}x{fh}] {rend.accum_sample_count} spp; frame "
+        f"wall s {walls}; card vs CPU: max |d| {int(diff.max())}, share of "
+        f"pixels differing {float((diff.max(axis=-1) > 0).mean())!r}; "
+        f"denoise {den_ms!r} ms on the card (CUDA events, mean of 5), "
+        f"{cpu_s:.3f} s on the CPU ({smi})")
+    if rend.accum_sample_count != 4 or diff.max() > 1:
+        raise AssertionError("the card's denoised frame differs from the "
+                             "CPU's by more than 1 u8 step")
+
+    # (c) the Lambert view
+    rend.set_denoise(False)
+    rend.set_lambert_view(True)
+    rend.resize(*small)
+    lam = {}
+    for neural in (False, True):
+        rend.set_use_neural_query(neural)
+        img_k = rend.render(pos)
+        with twin_path(lane_grid_kernel, trace_cluster, trace_pallas,
+                       traversal):
+            img_t = rend.render(pos)
+        d = np.abs(img_k.astype(int) - img_t.astype(int))
+        lam["neural" if neural else "gt"] = dict(
+            identical=bool((d == 0).all()), share_above_3=float(
+                (d > 3).mean()), mean=float(d.mean()),
+            mean_u8=float(img_k.mean()))
+    rend.set_use_neural_query(False)
+    rend.set_classic_mesh_index(1)
+    trace_pallas.trace_dense.launches = 0
+    img_inner = rend.render(pos)
+    k3_inner = trace_pallas.trace_dense.launches
+    rend.set_classic_mesh_index(0)
+    log(f"[viewer lambert {sw}x{sh} kernels vs twins] {lam}; the inner "
+        f"shell as the classic mesh: K3 launches {k3_inner}")
+    if not (lam["gt"]["identical"] and lam["neural"]["share_above_3"] < 0.02
+            and lam["neural"]["mean"] < 1.0 and k3_inner > 0
+            and img_inner.std() > 1.0):
+        raise AssertionError("a Lambert view differs from its twin frame "
+                             "or the classic shell missed K3")
+    rend.resize(*size)
+    lam_ms = {}
+    for neural in (False, True):
+        rend.set_use_neural_query(neural)
+        rend.render(pos)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rend.render(pos)
+        lam_ms["neural" if neural else "gt"] = \
+            (time.perf_counter() - t0) / 3 * 1e3
+    log(f"[viewer lambert {fw}x{fh}] wall ms per frame (with readback) "
+        f"{lam_ms} ({smi})")
+    rend.set_lambert_view(False)
+
+    # (d) the motion bench
+    text, _ = counted([cfg, "--bench-motion", "3", "--motion-drop", "4",
+                       "--width", fw, "--height", fh, "--output",
+                       out + "_d"])
+    motion = re.search(r"motion: (\d+) frames .* -> ([0-9.]+) fps "
+                       r"\(median frame ([0-9.]+) ms", text)
+    rest = re.search(r"rest: (\d+) spp .* \(([0-9.]+) Mrays/s\)", text)
+    if not (motion and rest and int(motion.group(1)) > 0
+            and int(rest.group(1)) == 64):
+        raise AssertionError("the motion bench printed no result")
+    log(f"[viewer bench-motion] preview fps {motion.group(2)}, median frame "
+        f"{motion.group(3)} ms, rest {rest.group(2)} Mrays/s ({smi})")
+
+    # (e) train-while-render
+    ckpt_dir = os.path.join(ROOT, "comparison_output", "smoke_live",
+                            "live_ckpt")
+    text, le = counted([cfg, "--headless", "3", "--train-steps", "4",
+                        "--train-batch", "16384", "--width", sw, "--height",
+                        sh, "--train-ckpt-dir", ckpt_dir, "--output",
+                        out + "_e"])
+    frames = re.findall(frame_re + r", loss ([0-9.naif]+) \(([0-9.]+) "
+                        r"train steps/s\)", text)
+    losses = [float(f[3]) for f in frames]
+    weights = re.search(r"^checkpoint: (\S+)", text, re.M)
+    log(f"[viewer train-while-render {sw}x{sh}] losses {losses}, train "
+        f"steps/s {[float(f[4]) for f in frames]}, spp "
+        f"{[int(f[0]) for f in frames]}, launches {le} ({smi})")
+    if not ("(warm start)" in text and len(frames) == 3
+            and np.isfinite(losses).all()
+            and [int(f[0]) for f in frames] == [1, 1, 1] and weights
+            and os.path.exists(weights.group(1))):
+        raise AssertionError("train-while-render went wrong")
+    if not all(le[k] > 0 for k in ("K1", "K2", "K5", "K6")):
+        raise AssertionError(f"train-while-render missed a kernel: {le}")
+    text = run_cli(train_cli.main, [
+        cfg, "--resume", weights.group(1), "--steps", "13", "--batch-size",
+        "16384", "--log-every", "1", "--device", dev, "--ckpt-dir",
+        os.path.join(ROOT, "comparison_output", "smoke_live",
+                     "resumed_ckpt")])
+    if not ("from step 12" in text and "step 13/13" in text):
+        raise AssertionError("cli/train.py --resume did not take the "
+                             "viewer's checkpoint")
+
+    # (f) the stage profiler
+    for neural in (False, True):
+        rend.set_use_neural_query(neural)
+        t = profile_renderer(rend, pos, neural)
+        filled = {k: v for k, v in t.ms.items() if v > 0}
+        ratio = sum(filled.values()) / t.frame_total_ms
+        log(f"[viewer profile {'neural' if neural else 'gt'} {fw}x{fh}] "
+            f"({smi})\n" + t.table() + f"\ncategory sum / frame total "
+            f"{ratio!r}")
+        missing = [k for k in PROFILE_CATEGORIES[neural] if k not in filled]
+        if missing or not t.frame_total_ms > 0:
+            raise AssertionError(f"the profile left {missing} at 0")
+
+    # (g) memory
+    peak = torch.cuda.max_memory_allocated() if on_gpu else 0
+    log(f"[viewer memory_stats] {json.dumps(rend.memory_stats())}; peak "
+        f"device memory of the phase {peak / 2**20:.0f} MiB ({smi})")
 
 
 def run_cli(main_fn, argv, keep=lambda line: True):

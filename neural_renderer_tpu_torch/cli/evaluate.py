@@ -4,10 +4,18 @@ Port of `neural_renderer_tpu/cli/evaluate.py`, same contract: render the
 ground truth, then the neural frame, at total_samples (8 samples per batch
 by default), save <output>/{ground_truth,neural,flip_error}.png, print PSNR
 and mean/max FLIP. Runs on the GPU unless `--device cpu` is given.
+A pass renders its batches in one loop that synchronises and reports
+progress every `--chunk-batches` batches; `--host-loop`, or a sample count
+that is not a multiple of `--batch-spp`, renders them one `render()` call
+each instead, the last batch taking the rest. `--profile` prints the
+per-stage timing table after each pass.
 
 Usage: python -m neural_renderer_tpu_torch.cli.evaluate <config.json>
        [--width W --height H --output DIR --batch-spp N --total-samples N
-        --ckpt FILE --no-additional --device cuda|cpu]
+        --ckpt FILE --no-additional --host-loop --chunk-batches N
+        --profile --device cuda|cpu]
+
+Not ported: `--dp` > 1 (pixel stripes over several GPUs), refused by name.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -36,9 +45,27 @@ def main(argv=None) -> int:
     parser.add_argument("--no-additional", action="store_true",
                         help="disable the additional mesh in the neural "
                              "pass (the ground-truth pass never traces it)")
+    parser.add_argument("--host-loop", action="store_true",
+                        help="one render() call per batch instead of the "
+                             "accumulation loop (for A/B timing)")
+    parser.add_argument("--chunk-batches", type=int, default=64,
+                        help="batches between synchronisations and progress "
+                             "updates")
+    parser.add_argument("--profile", action="store_true",
+                        help="print the per-stage timing table (ms and "
+                             "ns/ray of the reference's categories) after "
+                             "each pass; runs the stages again one by one")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="data-parallel GPUs (not ported)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+
+    if args.dp > 1:
+        print("evaluate: --dp > 1 (pixel stripes over several GPUs) is not "
+              "ported yet; it comes with the multi-GPU slice",
+              file=sys.stderr)
+        return 1
 
     import torch
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -58,9 +85,9 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config)
     total_samples = args.total_samples or cfg.rendering.total_samples
-    if total_samples % args.batch_spp != 0:
-        print(f"evaluate: total samples {total_samples} must be a multiple "
-              f"of --batch-spp {args.batch_spp}", file=sys.stderr)
+    if args.batch_spp < 1 or total_samples < 1:
+        print("evaluate: --batch-spp and the total sample count must be "
+              "positive", file=sys.stderr)
         return 1
     os.makedirs(args.output, exist_ok=True)
 
@@ -120,10 +147,29 @@ def main(argv=None) -> int:
         if on_gpu:
             torch.cuda.reset_peak_memory_stats()
         bar = ProgressBar()
-        bar.begin(label, total_samples // args.batch_spp)
-        img = renderer.render_accumulate(
-            pos, total_samples, batch_spp=args.batch_spp,
-            progress=lambda done, total: bar.update(done))
+        if args.host_loop or total_samples % args.batch_spp != 0:
+            # One render() per batch, the last one taking the rest.
+            bar.begin(label, -(-total_samples // args.batch_spp))
+            remaining, it = total_samples, 0
+            if on_gpu:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while remaining > 0:
+                batch = min(remaining, args.batch_spp)
+                renderer.set_samples_per_pixel(batch)
+                img = renderer.render(pos)
+                remaining -= batch
+                it += 1
+                bar.update(it)
+            renderer.last_frame_seconds = time.perf_counter() - t0
+            renderer.last_frame_rays = args.width * args.height * \
+                total_samples
+        else:
+            bar.begin(label, total_samples // args.batch_spp)
+            img = renderer.render_accumulate(
+                pos, total_samples, batch_spp=args.batch_spp,
+                chunk_batches=args.chunk_batches,
+                progress=lambda done, total: bar.update(done))
         print(f"{label}: {renderer.mrays_per_second:.2f} Mrays/s "
               f"({renderer.last_frame_seconds:.3f} s)")
         if on_gpu:
@@ -131,10 +177,17 @@ def main(argv=None) -> int:
                   f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         return img
 
+    def profile_pass(neural: bool):
+        if args.profile:
+            from ..render.profiler import profile_renderer
+            print(profile_renderer(renderer, pos, neural).table())
+
     gt = render_pass("Ground truth", neural=False)
     save_png(os.path.join(args.output, "ground_truth.png"), gt)
+    profile_pass(neural=False)
     neural = render_pass("Neural", neural=True)
     save_png(os.path.join(args.output, "neural.png"), neural)
+    profile_pass(neural=True)
 
     psnr = compute_psnr(gt, neural)
     print("\n=== Metrics ===")

@@ -216,6 +216,45 @@ def matrix_to_camera_state(matrix) -> tuple[np.ndarray, float, float]:
     return pos.astype(np.float32), float(yaw), float(pitch)
 
 
+def camera_state_to_matrix(position, yaw_deg: float,
+                           pitch_deg: float) -> np.ndarray:
+    """Returns the 16-float column-major world-to-camera matrix."""
+    position = np.asarray(position, dtype=np.float64)
+    yaw = math.radians(yaw_deg)
+    pitch = math.radians(pitch_deg)
+
+    forward = np.array([
+        math.cos(pitch) * math.cos(yaw),
+        math.sin(pitch),
+        math.cos(pitch) * math.sin(yaw),
+    ])
+    n = np.linalg.norm(forward)
+    if n > 1e-6:
+        forward = forward / n
+
+    world_up = np.array([0.0, 1.0, 0.0])
+    right = np.cross(forward, world_up)
+    rn = np.linalg.norm(right)
+    if rn < 1e-4:
+        right = np.array([1.0, 0.0, 0.0])
+    else:
+        right = right / rn
+    up = np.cross(right, forward)
+    un = np.linalg.norm(up)
+    if un > 1e-6:
+        up = up / un
+
+    m = np.zeros(16, dtype=np.float64)
+    m[0], m[1], m[2] = right[0], up[0], -forward[0]
+    m[4], m[5], m[6] = right[1], up[1], -forward[1]
+    m[8], m[9], m[10] = right[2], up[2], -forward[2]
+    m[12] = -np.dot(right, position)
+    m[13] = -np.dot(up, position)
+    m[14] = np.dot(forward, position)  # -(-forward . position)
+    m[15] = 1.0
+    return m.astype(np.float32)
+
+
 def camera_basis_from_state(yaw_deg: float, pitch_deg: float, fov_y: float):
     """Camera basis (forward, right, up, fov_y) from yaw/pitch."""
     yaw = math.radians(yaw_deg)

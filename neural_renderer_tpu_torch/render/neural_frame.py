@@ -2,7 +2,8 @@
 and the wavefront bounce loop.
 
 Port of `neural_renderer_tpu/render/neural_frame.py`: `render_neural_frame`
-and `_bounce_stage_compacted`:
+(with the denoiser's guide buffers on request), `_bounce_stage_compacted`
+and `render_neural_lambert`:
   1. multi-segment shell march for camera rays; with the hybrid branch, the
      additional mesh traced FORWARD_ONLY and the nearer hit kept;
   2. bounces: Disney sample -> early termination + shell entry (one sweep)
@@ -10,6 +11,7 @@ and `_bounce_stage_compacted`:
      additional mesh traced ANY on them, merged) -> environment
      integration;
   3. finalize with running accumulation.
+The Lambert view is step 1 followed by `pathtrace.lambert_shade`.
 """
 
 from __future__ import annotations
@@ -96,24 +98,37 @@ def _bounce_stage_compacted(ctx, params, additional, rays, path_active,
     return hits, srow(act_k)
 
 
-def render_neural_frame(ctx: NeuralContext, env, params, accum,
-                        use_additional: bool = False,
-                        bounce_compaction: bool | None = None,
-                        additional_mesh=None):
-    """One accumulation batch of neural path tracing. Returns
-    (image_u8 [H, W, 3], new_accum [3, H*W]). use_additional traces
-    `additional_mesh` (MeshTensors) beside the shells, where it is not
-    empty."""
+def _additional(use_additional, additional_mesh):
+    """The additional mesh to trace, or None."""
     if use_additional and additional_mesh is None:
         raise ValueError("use_additional needs the additional_mesh")
-    additional = additional_mesh if (
+    return additional_mesh if (
         use_additional and not additional_mesh.is_empty) else None
-    pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(params)
+
+
+def _camera_hits(ctx: NeuralContext, params, origins, dirs, additional):
+    """Camera-ray hits: the shell march and, with an `additional` mesh,
+    its FORWARD_ONLY trace merged by distance."""
     hits = trace_neural_segments(ctx, params, origins, dirs)
     if additional is not None:
         add_hits = pt.trace_rays_mesh(additional, params, origins, dirs,
                                       traversal.FORWARD_ONLY)
         hits = pt.select_closest_hits(params, hits, add_hits, origins)
+    return hits
+
+
+def render_neural_frame(ctx: NeuralContext, env, params, accum,
+                        use_additional: bool = False,
+                        bounce_compaction: bool | None = None,
+                        additional_mesh=None, return_guides: bool = False):
+    """One accumulation batch of neural path tracing. Returns
+    (image_u8 [H, W, 3], new_accum [3, H*W])[, (guide_normals,
+    guide_albedo)]: the guides are the merged camera hits'.
+    use_additional traces `additional_mesh` (MeshTensors) beside the
+    shells, where it is not empty."""
+    additional = _additional(use_additional, additional_mesh)
+    pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(params)
+    hits = _camera_hits(ctx, params, origins, dirs, additional)
     path = pt.init_path_state(params, env, hits, dirs)
 
     incoming = None
@@ -134,4 +149,19 @@ def render_neural_frame(ctx: NeuralContext, env, params, accum,
                                    bounce, pixel_idx, sample_of)
         incoming, cur_hits = rays.direction, bounce_hits
 
-    return pt.finalize(params, path.radiance, accum)
+    img, new_accum = pt.finalize(params, path.radiance, accum)
+    if return_guides:
+        return img, new_accum, pt.guide_buffers(params, hits)
+    return img, new_accum
+
+
+def render_neural_lambert(ctx: NeuralContext, env, params,
+                          use_additional: bool = False,
+                          additional_mesh=None):
+    """The neural branch's Lambert view (no bounces): the camera hits
+    shaded N.V, the environment on a miss. Returns the u8 image
+    [H, W, 3]."""
+    _, _, _, origins, dirs = pt.primary_rays(params)
+    hits = _camera_hits(ctx, params, origins, dirs,
+                       _additional(use_additional, additional_mesh))
+    return pt.lambert_shade(params, env, hits, dirs)

@@ -4,10 +4,10 @@ Port of `neural_renderer_tpu/render/pathtrace.py`: `HitState`, `PathState`,
 `BounceRays`, `sample_grid`, `primary_rays`, `init_path_state`,
 `sample_bounce_directions`, `update_active_after_sampling`,
 `integrate_bounce`, `finalize` (shared with the neural frame),
-`select_closest_hits` (the hybrid branch's merge) and the
-ground-truth branch: `trace_primary_gt`, `trace_rays_mesh`,
-`trace_bounces_gt`, `lambert_shade`, `accum_image`, `render_gt_frame`,
-`render_gt_lambert`. Samples are flat [N = spp * pixels] with sample_idx =
+`select_closest_hits` (the hybrid branch's merge), `guide_buffers` (the
+denoiser's guides) and the ground-truth branch: `trace_primary_gt`,
+`trace_rays_mesh`, `trace_bounces_gt`, `lambert_shade`, `accum_image`,
+`render_gt_frame`, `render_gt_lambert`. Samples are flat [N = spp * pixels] with sample_idx =
 pixel + s * pixel_count, so the RNG streams match the reference; vectors
 are channel-major [3, N].
 """
@@ -272,10 +272,19 @@ def lambert_shade(params, env, hits: HitState, prim_dirs):
     return img.permute(1, 2, 0).contiguous()
 
 
-def render_gt_frame(mesh, env, params, accum):
+def guide_buffers(params, hits: HitState):
+    """Sample-0 primary-hit normals and albedo as [3, H, W]: the denoiser's
+    guides."""
+    p = params.height * params.width
+    return (hits.normal[:, :p].reshape(3, params.height, params.width),
+            hits.albedo[:, :p].reshape(3, params.height, params.width))
+
+
+def render_gt_frame(mesh, env, params, accum, return_guides: bool = False):
     """One accumulation batch of ground-truth path tracing. Returns
-    (image_u8 [H, W, 3], new_accum [3, H*W]). sample_offset must advance by
-    samples_per_pixel between calls."""
+    (image_u8 [H, W, 3], new_accum [3, H*W])[, (guide_normals,
+    guide_albedo)]. sample_offset must advance by samples_per_pixel between
+    calls."""
     pixel_idx, sample_of, _, origins, dirs = primary_rays(params)
     hits = trace_primary_gt(mesh, params, origins, dirs)
     path = init_path_state(params, env, hits, dirs)
@@ -295,7 +304,10 @@ def render_gt_frame(mesh, env, params, accum):
         path = integrate_bounce(params, env, path, bounce_hits, rays, bounce,
                                 pixel_idx, sample_of)
         incoming, cur_hits = rays.direction, bounce_hits
-    return finalize(params, path.radiance, accum)
+    img, new_accum = finalize(params, path.radiance, accum)
+    if return_guides:
+        return img, new_accum, guide_buffers(params, hits)
+    return img, new_accum
 
 
 def render_gt_lambert(mesh, env, params):

@@ -4,13 +4,23 @@ Port of `neural_renderer_tpu/render/renderer.py`: built from a Scene and a
 NeuralNetworkConfig, with `resize`, the `set_*` API, `render(cam_pos)` (one
 accumulation batch, with the camera/setting change detection that resets
 accumulation) and `render_accumulate` (a fixed number of samples from a
-fresh accumulator). Branches: ground truth path-traced and Lambert, neural
-path-traced, with the hybrid additional mesh where the scene has one and
-`use_additional_mesh` is on. The environment is the scene's map (or the
-procedural sky) with the renderer's rotation and strength. PyTorch runs
-eagerly, so `render_accumulate` is a plain loop over batches. The neural
-Lambert view, denoising and the tiled multi-device paths are not ported
-yet.
+fresh accumulator). Branches: ground truth (on the classic mesh: the
+original mesh or, for `set_classic_mesh_index` 1 or 2, a shell) and
+neural, each path-traced or as the Lambert view, the neural one with the
+hybrid additional mesh where the scene has one and `use_additional_mesh`
+is on. With `set_denoise` a path-traced frame also returns its guide
+buffers and the image is `bilateral_denoise` of the running accumulation.
+The environment is the scene's map (or the procedural sky) with the
+renderer's rotation and strength, or the direct colour on camera misses.
+PyTorch runs eagerly, so `render_accumulate` is a plain loop over batches
+with a synchronisation and a progress call after each chunk. The tiled
+multi-device paths are not ported yet.
+
+One difference from the JAX Renderer: a change of samples_per_pixel keeps
+the accumulated samples (the image divides by the total count, so batches
+of any size average correctly). The JAX Renderer restarts the accumulation,
+so its evaluate host loop shows only the last batch of an uneven sample
+count.
 """
 
 from __future__ import annotations
@@ -27,8 +37,9 @@ import torch
 
 from ..config import NeuralNetworkConfig
 from ..models import convert, nbvh
+from ..ops.denoise import bilateral_denoise
 from ..scene.scene import Scene
-from .neural_frame import render_neural_frame
+from .neural_frame import render_neural_frame, render_neural_lambert
 from .neural_march import NeuralContext
 from .params import RenderParams
 from .pathtrace import accum_image, render_gt_frame, render_gt_lambert
@@ -78,17 +89,23 @@ class Renderer:
         self.bounce_count = 3
         self.use_neural_query = False
         self.lambert_view = False
+        self.classic_mesh_index = 0
         self.use_additional_mesh = True
         self.envmap_rotation = scene.environment.rotation
         self.env_strength = scene.environment.strength
         self.use_constant_neural_color = False
         self.constant_neural_color = (0.8, 0.8, 0.8)
+        self.use_direct_env_color = False
+        self.direct_env_color = (0.0, 0.0, 0.0)
+        self.denoise = False
+        self._guides = None
 
         self.basis = RenderBasis(np.array([0.0, 0.0, -1.0]),
                                  np.array([1.0, 0.0, 0.0]),
                                  np.array([0.0, 1.0, 0.0]), 1.047198)
         self._accum = None
         self._accum_sample_count = 0
+        self._pixels = None
         self._mesh_cache = {}
         self._env_pixels = None
         self._last_state = None
@@ -102,6 +119,7 @@ class Renderer:
             return
         self.width, self.height = width, height
         self._accum = None
+        self._pixels = None
 
     def set_camera_basis(self, basis: RenderBasis):
         self.basis = basis
@@ -118,8 +136,17 @@ class Renderer:
     def set_samples_per_pixel(self, n: int):
         self.samples_per_pixel = max(1, int(n))
 
+    def set_classic_mesh_index(self, i: int):
+        """The ground-truth branch's mesh: 0 the original, 1 the inner
+        shell, 2 the outer shell (an empty shell falls back to the
+        original)."""
+        self.classic_mesh_index = int(i)
+
     def set_envmap_rotation(self, deg: float):
         self.envmap_rotation = float(deg)
+
+    def set_env_strength(self, strength: float):
+        self.env_strength = max(0.0, float(strength))
 
     def set_use_additional_mesh(self, v: bool):
         self.use_additional_mesh = bool(v)
@@ -127,6 +154,15 @@ class Renderer:
     def set_constant_neural_color(self, use: bool, color=(0.8, 0.8, 0.8)):
         self.use_constant_neural_color = bool(use)
         self.constant_neural_color = tuple(color)
+
+    def set_direct_env_color(self, use: bool, color=(0.0, 0.0, 0.0)):
+        """Camera rays that miss see `color` instead of the environment."""
+        self.use_direct_env_color = bool(use)
+        self.direct_env_color = tuple(color)
+
+    def set_denoise(self, v: bool):
+        """Denoise path-traced frames with the joint bilateral filter."""
+        self.denoise = bool(v)
 
     def reset_samples(self):
         self._accum = None
@@ -162,9 +198,17 @@ class Renderer:
             return False
 
     def set_network(self, net: nbvh.ShellNetwork):
-        """New weights invalidate the samples accumulated with the old."""
+        """New weights invalidate the samples accumulated with the old: the
+        train-while-render loop pushes its network here after its steps
+        (an in-place update of the same network needs the push too)."""
         self.net = net
         self._weights_version += 1
+
+    def device_pixels(self) -> np.ndarray:
+        """The last rendered u8 image [H, W, 3]."""
+        if self._pixels is None:
+            raise RuntimeError("no frame rendered yet")
+        return self._pixels
 
     # -- internals -------------------------------------------------------
     def _mesh_tensors(self, name: str):
@@ -172,6 +216,18 @@ class Renderer:
             self._mesh_cache[name] = getattr(self.scene, name).to_tensors(
                 self.device)
         return self._mesh_cache[name]
+
+    def invalidate_meshes(self):
+        self._mesh_cache.clear()
+
+    def _classic_name(self) -> str:
+        if self.classic_mesh_index == 1 \
+                and self.scene.inner_shell.num_triangles > 0:
+            return "inner_shell"
+        if self.classic_mesh_index == 2 \
+                and self.scene.outer_shell.num_triangles > 0:
+            return "outer_shell"
+        return "original_mesh"
 
     def _env_tensors(self):
         if self._env_pixels is None:
@@ -187,17 +243,20 @@ class Renderer:
             return tuple(np.round(np.asarray(v, np.float64), 5))
         return (r5(cam_pos), r5(self.basis.forward), r5(self.basis.right),
                 r5(self.basis.up), round(self.basis.fov_y, 5),
+                # samples_per_pixel is left out: batches of any size
+                # average correctly (see the module docstring).
                 self.use_neural_query, self.lambert_view, self.bounce_count,
-                self.samples_per_pixel,
+                self.classic_mesh_index,
                 self.envmap_rotation, self.env_strength,
                 self.use_additional_mesh,
                 self.use_constant_neural_color, self.constant_neural_color,
+                self.use_direct_env_color, self.direct_env_color,
                 # Weight pushes only invalidate frames that sample the
                 # network.
                 self._weights_version if self.use_neural_query else 0)
 
     def _build_params(self, cam_pos, sample_offset: int) -> RenderParams:
-        smin, smax = self.scene.original_mesh.bounds()
+        smin, smax = getattr(self.scene, self._classic_name()).bounds()
         scene_scale = float(np.linalg.norm(smax - smin))
         if scene_scale < 1e-6:
             scene_scale = 1.0
@@ -215,36 +274,40 @@ class Renderer:
             sample_offset=sample_offset,
             use_constant_neural_color=self.use_constant_neural_color,
             constant_neural_color=self.constant_neural_color,
+            use_direct_env_color=self.use_direct_env_color,
+            direct_env_color=self.direct_env_color,
             scene_scale=scene_scale, outer_shell_min=omin,
             outer_shell_inv_extent=inv_extent, device=self.device)
 
     def _frame_fn(self):
-        """(frame, lambert): `frame(env, params, accum) -> (img, accum)` of
-        the active branch and, for the ground-truth branch, its Lambert
-        view."""
+        """(frame, lambert) of the active branch:
+        `frame(env, params, accum, return_guides) -> (img, accum[,
+        guides])` and `lambert(env, params) -> img`."""
         if self.use_neural_query:
             if self.scene.outer_shell.num_triangles == 0:
                 raise RuntimeError("neural query without an outer shell mesh")
             if self.net is None:
                 raise RuntimeError("neural query without weights: call "
                                    "load_weights_from_file or set_network")
-            if self.lambert_view:
-                raise NotImplementedError(
-                    "the neural Lambert view (render_neural_lambert) is not "
-                    "ported yet")
             ctx = NeuralContext(outer=self._mesh_tensors("outer_shell"),
                                 inner=self._mesh_tensors("inner_shell"),
                                 net=self.net)
             use_add = (self.use_additional_mesh
                        and self.scene.additional_mesh.num_triangles > 0)
             add = self._mesh_tensors("additional_mesh") if use_add else None
-            return (lambda env, params, accum: render_neural_frame(
-                ctx, env, params, accum, use_additional=use_add,
-                additional_mesh=add)), None
-        mesh = self._mesh_tensors("original_mesh")
-        return (lambda env, params, accum: render_gt_frame(
-            mesh, env, params, accum),
-            lambda env, params: render_gt_lambert(mesh, env, params))
+            return (lambda env, params, accum, return_guides=False:
+                    render_neural_frame(ctx, env, params, accum,
+                                        use_additional=use_add,
+                                        additional_mesh=add,
+                                        return_guides=return_guides),
+                    lambda env, params: render_neural_lambert(
+                        ctx, env, params, use_additional=use_add,
+                        additional_mesh=add))
+        mesh = self._mesh_tensors(self._classic_name())
+        return (lambda env, params, accum, return_guides=False:
+                render_gt_frame(mesh, env, params, accum,
+                                return_guides=return_guides),
+                lambda env, params: render_gt_lambert(mesh, env, params))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -272,6 +335,13 @@ class Renderer:
         if self.lambert_view:
             img = lambert(env, params)
             self._accum_sample_count = 0
+        elif self.denoise:
+            img, self._accum, self._guides = frame(env, params, self._accum,
+                                                   return_guides=True)
+            self._accum_sample_count += self.samples_per_pixel
+            img = bilateral_denoise(
+                self._accum.reshape(3, self.height, self.width),
+                self._accum_sample_count, *self._guides)
         else:
             img, self._accum = frame(env, params, self._accum)
             self._accum_sample_count += self.samples_per_pixel
@@ -279,23 +349,29 @@ class Renderer:
         self.last_frame_seconds = time.perf_counter() - t0
         self.last_frame_rays = self.width * self.height * \
             self.samples_per_pixel
+        self._pixels = img
         return img
 
     @torch.no_grad()
     def render_accumulate(self, cam_pos, total_samples: int,
-                          batch_spp: int = 1, progress=None) -> np.ndarray:
+                          batch_spp: int = 1, chunk_batches: int = 64,
+                          progress=None) -> np.ndarray:
         """Render `total_samples` samples per pixel in batches of
         `batch_spp`, from a fresh accumulator; returns the final u8 image
-        [H, W, 3]. `progress(batches_done, batches_total)` fires after each
-        batch. The Lambert view has no accumulation: use render()."""
+        [H, W, 3]. `progress(batches_done, batches_total)` fires after
+        every `chunk_batches` batches and the last, each time after a
+        synchronisation, so it tracks the device; the image does not depend
+        on the chunking. The Lambert and denoised views have no
+        accumulation loop: use render()."""
         if self.width <= 0 or self.height <= 0:
             raise RuntimeError("resize() must be called before render()")
-        if self.lambert_view:
-            raise ValueError("render_accumulate supports path-traced frames "
-                             "only (no Lambert view)")
+        if self.lambert_view or self.denoise:
+            raise ValueError("render_accumulate supports plain path-traced "
+                             "frames only (no Lambert view, no denoise)")
         if total_samples % batch_spp != 0:
             raise ValueError(f"total_samples {total_samples} must be a "
                              f"multiple of batch_spp {batch_spp}")
+        chunk_batches = max(1, int(chunk_batches))
         self.set_samples_per_pixel(batch_spp)
         self.reset_samples()
         # render()'s change detection must not blend into this buffer.
@@ -315,7 +391,9 @@ class Renderer:
             params = self._build_params(cam_pos,
                                         (i * batch_spp) & 0xFFFFFFFF)
             _, accum = frame(env, params, accum)
-            if progress is not None:
+            if progress is not None and ((i + 1) % chunk_batches == 0
+                                         or i + 1 == n_total):
+                self._sync()
                 progress(i + 1, n_total)
         img = accum_image(params, accum, total_samples).cpu().numpy()
         self._sync()
@@ -323,7 +401,36 @@ class Renderer:
         self.last_frame_rays = self.width * self.height * total_samples
         self._accum = accum
         self._accum_sample_count = total_samples
+        self._pixels = img
         return img
+
+    def memory_stats(self) -> dict:
+        """Bytes of the network and of each mesh's tensors on the device
+        (the BVH: the packed nodes, cluster bounds and root box), with the
+        keys of the JAX Renderer's memory panel."""
+        def tensor_bytes(ts):
+            return int(sum(t.numel() * t.element_size() for t in ts
+                           if isinstance(t, torch.Tensor)))
+
+        stats = {"network_bytes": 0 if self.net is None
+                 else tensor_bytes(self.net.parameters())}
+        mesh_total = bvh_total = 0
+        for name in ("original_mesh", "inner_shell", "outer_shell",
+                     "additional_mesh"):
+            m = self._mesh_tensors(name)
+            total = tensor_bytes(getattr(m, f.name)
+                                 for f in dataclasses.fields(m))
+            bvh = tensor_bytes((m.nodes_packed, m.cluster_bounds,
+                                m.bounds_min, m.bounds_max))
+            stats[name] = {"total_bytes": total, "bvh_bytes": bvh,
+                           "triangles": m.num_triangles}
+            mesh_total += total - bvh
+            bvh_total += bvh
+        stats["mesh_bytes"] = mesh_total
+        stats["bvh_bytes"] = bvh_total
+        # Frames that fell back from a multi-device path: none is ported.
+        stats["tiled_fallback_frames"] = 0
+        return stats
 
     @property
     def mrays_per_second(self) -> float:

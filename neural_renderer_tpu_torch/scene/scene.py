@@ -6,8 +6,9 @@ and additional meshes, bilinear on the shells, as the reference), applies
 its material block and loads the environment file it names (HDR, EXR or
 PNG; none selects the procedural sky). A file that fails to load is
 reported on stderr and recorded (`failed_meshes`, `environment_error`), so
-an app can refuse to render without it; the reference's UV-sphere fallback
-is not taken.
+an app can refuse to render without it. With `sphere_fallback` (the
+viewer's) an original mesh that fails to load is replaced by a unit UV
+sphere, and is still named in `failed_meshes`.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from dataclasses import dataclass, field
 from ..config import RendererConfig
 from .envmap import EnvironmentMap
 from .materials import Material
-from .mesh import HostMesh
+from .mesh import HostMesh, generate_uv_sphere
 from .mesh_loader import load_mesh_labeled
 
 
@@ -36,9 +37,11 @@ class Scene:
     environment_error: str | None = None
 
     @staticmethod
-    def from_config(config: RendererConfig) -> "Scene":
+    def from_config(config: RendererConfig,
+                    sphere_fallback: bool = False) -> "Scene":
         """Load the scene a RendererConfig describes. A mesh whose file
-        fails to load is reported on stderr, stays empty and is named in
+        fails to load is reported on stderr, stays empty (the original mesh
+        a 32x64 unit UV sphere with `sphere_fallback`) and is named in
         `failed_meshes`."""
         scene = Scene()
         for attr, label, nearest in (
@@ -49,6 +52,11 @@ class Scene:
             entry = getattr(config, attr)
             loaded = load_mesh_labeled(entry.path, label, scale=entry.scale,
                                        nearest_tex=nearest)
+            if loaded is None and sphere_fallback \
+                    and attr == "original_mesh":
+                loaded = generate_uv_sphere(32, 64, 1.0)
+                if entry.path:
+                    scene.failed_meshes.append(label)
             if loaded is not None:
                 setattr(scene, attr, loaded)
             elif entry.path:

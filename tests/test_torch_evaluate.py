@@ -259,16 +259,22 @@ def test_evaluate_studio_cpu(tmp_path, capsys):
 
 
 def test_evaluate_refuses_uneven_samples_and_missing_shell(tmp_path, capsys):
-    """A sample count the batches do not divide, and a shell file that does
-    not load, end the run with rc 1 before anything is rendered: neither a
-    last partial batch nor ground truth against ground truth is reported."""
+    """A sample count the batches do not divide renders through the
+    per-batch loop, as the JAX evaluate's does (the last batch takes the
+    rest: 2 batches for 3 samples in batches of 2); a shell file that does
+    not load ends the run with rc 1 before anything is rendered: no ground
+    truth against ground truth is reported."""
     import json
     cfg_path = os.path.join(ROOT, "configs", "sphere", "sphere_lane.json")
     size = ["--width", "16", "--height", "9", "--device", "cpu", "--output",
             str(tmp_path / "out")]
+    uneven = size[:-1] + [str(tmp_path / "uneven")]
     assert evaluate.main([cfg_path, "--total-samples", "3", "--batch-spp",
-                          "2"] + size) == 1
-    assert "multiple of --batch-spp" in capsys.readouterr().err
+                          "2"] + uneven) == 0
+    text = capsys.readouterr().out
+    assert "2/2" in text and "PSNR:" in text
+    assert image_io.load_image(str(tmp_path / "uneven" / "neural.png")) \
+        .shape == (9, 16, 3)
     with open(cfg_path) as f:
         j = json.load(f)
     sphere_dir = os.path.dirname(cfg_path)

@@ -177,7 +177,8 @@ def test_import_without_jax():
     """The port imports with JAX, the JAX package, imageio, matplotlib,
     orbax and optax made unimportable (sys.modules[name] = None), every
     module of the package included (train, cli.train, ops.fused_network,
-    ops.trace_mxu and the environment and EXR modules among them); then,
+    ops.trace_mxu, the environment and EXR modules, ops.denoise,
+    render.profiler, cli.viewer and cli.input_controller among them); then,
     still without them, it loads the studio scene (the PIZ EXR sky, the
     glTF torus and its PNG textures)."""
     code = (
@@ -190,7 +191,9 @@ def test_import_without_jax():
         "    p.__path__, p.__name__ + '.')]\n"
         "assert {p.__name__ + '.' + m for m in ('train', 'cli.train', "
         "'ops.fused_network', 'ops.trace_mxu', 'scene.envmap', 'scene.exr', "
-        "'scene.exr_piz', 'scene.exr_b44', 'scene.exr_write')}"
+        "'scene.exr_piz', 'scene.exr_b44', 'scene.exr_write', "
+        "'ops.denoise', 'render.profiler', 'cli.viewer', "
+        "'cli.input_controller')}"
         " <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
