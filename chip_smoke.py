@@ -211,7 +211,44 @@ its training. Phases, each failing the run:
      per second; (f) `profile_renderer` tables, ground truth and neural:
      every category the JAX profiler fills for the branch above 0, the
      ratio of their sum to the whole frame's time; (g) `memory_stats()`
-     and the phase's `torch.cuda.max_memory_allocated`.
+     and the phase's `torch.cuda.max_memory_allocated`;
+ 25. the multi-GPU paths on the one card, each held exactly: (a) in one
+     process, the trained lane sphere at 1920x1080 (spp 1, 3 bounces) in 4
+     stripes of 270 rows through `render_neural_frame(row0, n_rows)` and
+     the knot's ground-truth frame at 480x270 in 4 stripes (67, 68, 67, 68
+     rows), each stitched equal to the whole frame (u8 image,
+     accumulation, guides), K1 / K2 / K3 / K5 launches logged per stripe,
+     and the denoiser's stripes with halos assembled in the process equal
+     to `bilateral_denoise`; (b) `evaluate --dp 5` of the knot at 480x270
+     x 64 (270 rows do not split into 4 stripes, and a height the stripes
+     do not divide falls back to the whole frame), five ranks sharing the
+     card over gloo: PNGs byte-equal to phase 7's, PSNR and FLIP equal,
+     Mrays/s of both; and `evaluate --dp 4` at 480x272 byte-equal to one
+     process at that size; (c) `viewer --dp 4 --headless 2
+     --save-sequence` on the lane sphere at 1920x1080, run as a user runs
+     it, its PNGs byte-equal to one process's; the viewer's renderer with
+     the denoiser (the x key; the CLI has no flag for it) on 4 ranks, 2
+     frames equal to one process's, no fallback, each rank's accumulation a
+     quarter of the pixels; `viewer --dp 2 --train-steps 2` at 480x270
+     against one process: the losses within 2% (DP_LOSS_TOL), the exit
+     checkpoint's moments within 1e-3 of their largest value
+     (DP_GRAD_TOL); (d) `train --dp 2 --tp 2` on the knot (16,384
+     segments x 3), run as a user runs it: after one step the moments
+     within 1e-3 of their largest value of one process's on the same seed
+     and the parameters within 1e-6 where the moment is above that, after
+     20 steps the loss within 2%, the per-rank network + moment bytes
+     against the unsharded ones, steps/s, and the written `.npz` rendered
+     by `evaluate`; (e) a world-size-1 NCCL group through the tiled
+     functions equal to the plain frames and denoiser; with four GPUs,
+     `evaluate --dp 4` at 480x272 over NCCL against one process (else a
+     line saying why it did not run); (f) the sphere frame under
+     NR_ENTRY_RETRY=trace equal to the default, under
+     NR_CAMERA_ENTRY=trace differing from it on under
+     1% of the pixels (ENTRY_TRACE_SHARE), K3 / K5 launches of each; (g)
+     `train --resume configs/knot/lane_step48000.npz` (the export of the
+     JAX package's orbax checkpoint) for 10 steps, without orbax: every
+     loss under phase 10's 0.03 bound for the trained weights and the
+     first under a tenth of a fresh start's (phase 10's first loss).
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -974,6 +1011,7 @@ def main() -> int:
                                    "--height", "270", "--output", out_dir])
     psnr, flip = parse_metrics(text)
     knot7 = (psnr, flip)
+    knot7_dir, knot7_text = out_dir, text
     log(f"[evaluate knot 480x270 x{kcfg.rendering.total_samples}] PSNR "
         f"{psnr!r} dB, FLIP {flip!r} (gate >= 40.2 dB, <= 0.018)")
     if not (psnr >= 40.2 and flip <= 0.018):
@@ -1135,6 +1173,7 @@ def main() -> int:
         f"{train_launches}")
     if not (len(steps10) == 100 and last <= 0.5 * first):
         raise AssertionError("training did not halve the loss in 100 steps")
+    fresh10, trained10 = first, l10.item()
     for key, n in train_launches.items():
         if n <= 0:
             raise AssertionError(f"{key} was never launched by training")
@@ -1693,6 +1732,12 @@ def main() -> int:
     t24 = time.perf_counter()
     viewer_phase(smi)
     log(f"[phase 24] {time.perf_counter() - t24:.1f} s")
+
+    # ---- 25. the multi-GPU paths -------------------------------------------
+    t25 = time.perf_counter()
+    parallel_phase(smi, knot7_dir, knot7_text, fresh_loss=fresh10,
+                   trained_loss=trained10)
+    log(f"[phase 25] {time.perf_counter() - t25:.1f} s")
 
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
@@ -3054,6 +3099,506 @@ def frame_kernel_ms(ctx, env, params, accum, lane_grid_kernel, trace_cluster,
          traversal.trace_dense) = saved
     return {k: (sum(s.elapsed_time(e) for s, e in v), len(v))
             for k, v in events.items()}
+
+
+# Phase 25: the multi-GPU paths. Training's first step against one process:
+# K6's own bound on the moments (0.1 x the gradient), the parameters as the
+# CPU test (tests/test_torch_parallel_train.py) holds them.
+DP_GRAD_TOL = 1e-3         # of max |exp_avg|, K6 against its twin
+DP_LOSS_TOL = 0.02         # relative, the step-20 loss against one process
+ENTRY_TRACE_SHARE = 0.01   # pixels the "trace" camera entry may change
+# 270 rows split into 5 stripes of 54 (4 would leave a remainder, and a
+# frame whose height the stripes do not divide falls back to the whole
+# frame, as in the JAX package).
+EVAL_DP = 5
+
+
+def run_module(module, argv, timeout=600, keep=lambda line: True):
+    """`python -m module argv` from the checkout, in its own process as a
+    user runs a multi-rank CLI; logs the lines `keep` accepts and returns
+    (stdout, stderr, seconds). Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    for line in out.stdout.replace("\r", "\n").splitlines():
+        if line.strip() and keep(line):
+            log("  | " + line)
+    for line in out.stderr.splitlines()[-4:]:
+        log("  ! " + line)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {argv} returned {out.returncode}")
+    return out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def pass_rates(text):
+    """{label: Mrays/s} of an evaluate run's two passes."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(Ground truth|Neural): ([0-9.]+) Mrays/s", text, re.M)}
+
+
+def phase25_denoised(rank, world, device, cfg, size, frames):
+    """The ranks of phase 25 (c): the viewer's renderer as `viewer --dp`
+    builds it (viewer.build_renderer with a dp mesh) with the denoiser on
+    (the viewer's x key; its CLI has no flag for it, as in the JAX
+    package), `frames` frames. Rank 0 returns the frames with their
+    seconds; every rank its fallback count and its accumulation's pixel
+    count."""
+    import argparse
+    from neural_renderer_tpu_torch import parallel
+    from neural_renderer_tpu_torch.cli import viewer
+    args = argparse.Namespace(config=cfg, device=str(device), width=size[0],
+                              height=size[1], spp=1, ckpt="",
+                              mesh=parallel.make_mesh(dp=world, tp=1))
+    _, rend, ctl, basis = viewer.build_renderer(args)
+    rend.set_camera_basis(basis())
+    rend.set_denoise(True)
+    out = [(rend.render(ctl.camera.position), rend.last_frame_seconds)
+           for _ in range(frames)]
+    return (out if rank == 0 else None,
+            rend.memory_stats()["tiled_fallback_frames"],
+            rend._accum.shape[-1])
+
+
+def denoise_stitched(accum, count, normals, albedo, n_stripes):
+    """bilateral_denoise_tiled's stripes in one process: each stripe's
+    [10, rows, W] stack (parallel.shardings.stripe_stack) with its
+    neighbours' edge rows as halos (zeros, valid 0, at the frame's border)
+    through the same stencil (denoise_ext). Whole-frame inputs; returns the
+    u8 image [H, W, 3]."""
+    import torch
+    from neural_renderer_tpu_torch.ops.denoise import DENOISE_RADIUS as R
+    from neural_renderer_tpu_torch.parallel import shardings
+    _, h, w = accum.shape
+    rows = h // n_stripes
+    stacks = [shardings.stripe_stack(
+        accum[:, i * rows:(i + 1) * rows], count,
+        normals[:, i * rows:(i + 1) * rows],
+        albedo[:, i * rows:(i + 1) * rows]) for i in range(n_stripes)]
+    out = []
+    for i, st in enumerate(stacks):
+        zero = torch.zeros_like(st[:, :R])
+        up = stacks[i - 1][:, -R:] if i > 0 else zero
+        dn = stacks[i + 1][:, :R] if i + 1 < n_stripes else zero
+        out.append(shardings.denoise_ext(torch.cat([up, st, dn], dim=1),
+                                         rows, w))
+    return torch.cat(out, dim=0)
+
+
+def same_files(dir_a, dir_b, names):
+    """{name: whether the two directories' files are byte-equal}."""
+    def read(d, n):
+        with open(os.path.join(d, n), "rb") as f:
+            return f.read()
+    return {n: read(dir_a, n) == read(dir_b, n) for n in names}
+
+
+def npz_arrays(path):
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def parallel_phase(smi, knot7_dir, knot7_text, fresh_loss, trained_loss,
+                   dev="cuda", size=(W, H), knot_size=(480, 270),
+                   total_samples=None, batch=16384):
+    """Phase 25: the multi-GPU paths (see the module docstring).
+    knot7_dir / knot7_text: phase 7's output directory and printed text
+    (an evaluate of the knot at knot_size); fresh_loss: phase 10's first
+    loss from seeded weights; trained_loss: phase 10's loss of the 48k-step
+    knot weights. dev, size, knot_size, total_samples (the knot evaluate's)
+    and batch (training's) shrink it for a rehearsal on the CPU."""
+    import argparse
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from neural_renderer_tpu_torch import parallel
+    from neural_renderer_tpu_torch.cli import evaluate
+    from neural_renderer_tpu_torch.cli import train as train_cli
+    from neural_renderer_tpu_torch.cli import viewer
+    from neural_renderer_tpu_torch.metrics import load_image
+    from neural_renderer_tpu_torch.ops import (lane_grid_kernel,
+                                               trace_cluster, trace_pallas)
+    from neural_renderer_tpu_torch.ops.denoise import bilateral_denoise
+    from neural_renderer_tpu_torch.parallel.launch import spawn
+    from neural_renderer_tpu_torch.render import neural_march
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    from neural_renderer_tpu_torch.render.neural_frame import \
+        render_neural_frame
+    counters = {"K1": trace_cluster.sweep_clusters_stream,
+                "K2": lane_grid_kernel.forward_lane,
+                "K3": trace_pallas.trace_dense,
+                "K5": trace_cluster.trace_clusters_stream}
+
+    on_gpu = torch.device(dev).type == "cuda"
+    W, H = size
+    kw, kh = knot_size
+    cli_dev = [] if on_gpu else ["--device", "cpu"]
+    samples = [] if total_samples is None else ["--total-samples",
+                                                str(total_samples)]
+
+    def counted(fn):
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        if on_gpu:
+            torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counters.items()}
+
+    def stitched(parts, whole, w):
+        img, acc, guides = whole
+        return (torch.equal(torch.cat([p[0] for p in parts]), img)
+                and torch.equal(torch.cat([p[1].reshape(3, -1, w)
+                                           for p in parts], 1),
+                                acc.reshape(3, -1, w))
+                and all(torch.equal(torch.cat([p[2][k] for p in parts], 1),
+                                    guides[k]) for k in (0, 1)))
+
+    sph_cfg = os.path.join(ROOT, "configs", "sphere", "sphere_lane.json")
+    knot_cfg = os.path.join(ROOT, "configs", "knot", "knot_lane.json")
+    out_root = os.path.join(ROOT, "comparison_output", "smoke_parallel")
+
+    def renderer(cfg, size):
+        _, rend, ctl, basis = viewer.build_renderer(argparse.Namespace(
+            config=cfg, device=dev, width=size[0], height=size[1], spp=1,
+            ckpt=""))
+        rend.set_camera_basis(basis())
+        return rend, rend._build_params(ctl.camera.position, 0)
+
+    # (a) stripes in one process ------------------------------------------
+    t0 = time.perf_counter()
+    srend, sparams = renderer(sph_cfg, (W, H))
+    sctx = neural_march.NeuralContext(srend._mesh_tensors("outer_shell"),
+                                      srend._mesh_tensors("inner_shell"),
+                                      srend.net)
+    senv = srend._env_tensors()
+
+    def sphere_frame(row0=0, n_rows=H):
+        return render_neural_frame(
+            sctx, senv, sparams, torch.zeros((3, W * n_rows), device=dev),
+            return_guides=True, row0=row0, n_rows=n_rows)
+
+    whole, la = counted(sphere_frame)
+    log(f"[25a sphere {W}x{H} spp1 b3, trained] whole frame launches {la}")
+    rows, parts = H // 4, []
+    for i in range(4):
+        part, la = counted(lambda: sphere_frame(i * rows, rows))
+        parts.append(part)
+        log(f"[25a sphere stripe {i}: rows {i * rows}-{(i + 1) * rows - 1}] "
+            f"launches {la}")
+    same = stitched(parts, whole, W)
+    log(f"[25a sphere] 4 stripes of {rows} rows equal the whole frame "
+        f"(u8 image, accumulation, guides): {same}")
+    if not same:
+        raise AssertionError("the sphere's stripes differ from its frame")
+    acc = whole[1].reshape(3, H, W)
+    den = bilateral_denoise(acc, 1, *whole[2])
+    den_s = denoise_stitched(acc, 1, *whole[2], 4)
+    log(f"[25a denoise {W}x{H}] 4 stripes with halos equal "
+        f"bilateral_denoise: {torch.equal(den, den_s)}")
+    if not torch.equal(den, den_s):
+        raise AssertionError("the tiled denoiser differs from the whole")
+    krend, kparams = renderer(knot_cfg, knot_size)
+    kgt, kenv = krend._mesh_tensors("original_mesh"), krend._env_tensors()
+
+    def knot_frame(row0=0, n_rows=kh):
+        return pt.render_gt_frame(
+            kgt, kenv, kparams, torch.zeros((3, kw * n_rows), device=dev),
+            return_guides=True, row0=row0, n_rows=n_rows)
+
+    kwhole, la = counted(knot_frame)
+    log(f"[25a knot GT {kw}x{kh} spp1 b3] whole frame launches {la}")
+    bounds = [kh * i // 4 for i in range(5)]
+    kparts = []
+    for i in range(4):
+        part, la = counted(lambda: knot_frame(bounds[i],
+                                              bounds[i + 1] - bounds[i]))
+        kparts.append(part)
+        log(f"[25a knot stripe {i}: rows {bounds[i]}-{bounds[i + 1] - 1}] "
+            f"launches {la}")
+    same = stitched(kparts, kwhole, kw)
+    log(f"[25a knot] 4 stripes of {[b - a for a, b in zip(bounds, bounds[1:])]}"
+        f" rows equal the whole frame: {same} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("the knot's stripes differ from its frame")
+    del parts, kparts
+
+    # (b) evaluate --dp over ranks sharing the card -------------------------
+    t0 = time.perf_counter()
+    ev_dir = out_root + "_evaluate"
+    text, err, secs = run_module(
+        "neural_renderer_tpu_torch.cli.evaluate",
+        [knot_cfg, "--width", str(kw), "--height", str(kh), "--output",
+         ev_dir, "--dp", str(EVAL_DP), *samples, *cli_dev],
+        keep=lambda ln: " ETA " not in ln)
+    psnr, flip = parse_metrics(text)
+    same_png = {name: open(os.path.join(ev_dir, name), "rb").read()
+                == open(os.path.join(knot7_dir, name), "rb").read()
+                for name in ("ground_truth.png", "neural.png",
+                             "flip_error.png")}
+    rates, rates7 = pass_rates(text), pass_rates(knot7_text)
+    metrics7 = parse_metrics(knot7_text)
+    log(f"[25b evaluate knot {kw}x{kh} --dp {EVAL_DP} on one card] "
+        f"{err.strip()}; PNGs equal phase 7's: {same_png}; PSNR {psnr!r} / "
+        f"FLIP {flip!r} (phase 7 {metrics7}); Mrays/s {rates} against one "
+        f"process {rates7}; {secs:.1f} s wall ({smi})")
+    if not all(same_png.values()) or (psnr, flip) != metrics7:
+        raise AssertionError("evaluate --dp differs from phase 7")
+    if "falls back" in err:
+        raise AssertionError(f"evaluate --dp fell back: {err}")
+    # Four stripes need a height 4 divides: 480x272 against one process
+    # at that size.
+    kh4 = kh + (-kh) % 4
+    ev1, ev4 = out_root + "_evaluate272_one", out_root + "_evaluate272_dp4"
+    ev_text1 = run_evaluate(evaluate, [
+        knot_cfg, "--width", str(kw), "--height", str(kh4), "--output", ev1,
+        *samples, *cli_dev])
+    text4, err, secs = run_module(
+        "neural_renderer_tpu_torch.cli.evaluate",
+        [knot_cfg, "--width", str(kw), "--height", str(kh4), "--output",
+         ev4, "--dp", "4", *samples, *cli_dev],
+        keep=lambda ln: " ETA " not in ln)
+    same_png = same_files(ev1, ev4, ("ground_truth.png", "neural.png",
+                                     "flip_error.png"))
+    log(f"[25b evaluate knot {kw}x{kh4} --dp 4 on one card] {err.strip()}; "
+        f"PNGs equal one process's: {same_png}; PSNR / FLIP "
+        f"{parse_metrics(text4)} (one process {parse_metrics(ev_text1)}); "
+        f"Mrays/s {pass_rates(text4)} against one process "
+        f"{pass_rates(ev_text1)}; {secs:.1f} s wall "
+        f"({time.perf_counter() - t0:.1f} s for 25b; {smi})")
+    if not all(same_png.values()) \
+            or parse_metrics(text4) != parse_metrics(ev_text1):
+        raise AssertionError("evaluate --dp 4 differs from one process")
+    if "falls back" in err:
+        raise AssertionError(f"evaluate --dp 4 fell back: {err}")
+
+    # (c) the viewer: `viewer --dp 4` as a user runs it, the denoised
+    # renderer on 4 ranks, train-while-render under --dp 2 --------------
+    t0 = time.perf_counter()
+    vflags = [sph_cfg, "--headless", "2", "--save-sequence", "--width",
+              str(W), "--height", str(H), *cli_dev]
+    v1, v4 = out_root + "_viewer_one", out_root + "_viewer_dp4"
+
+    def keep_frames(line):
+        return line.startswith("frame ")
+
+    vtext1 = run_cli(viewer.main, vflags + ["--output", v1],
+                     keep=keep_frames)
+    vtext4, err, secs = run_module("neural_renderer_tpu_torch.cli.viewer",
+                                   vflags + ["--output", v4, "--dp", "4"],
+                                   keep=keep_frames)
+    same_png = same_files(v1, v4, ("frame_0000.png", "frame_0001.png",
+                                   "viewer_final.png"))
+    fps = [[float(v) for v in re.findall(r"([0-9.]+) fps", t)]
+           for t in (vtext4, vtext1)]
+    log(f"[25c viewer --dp 4 --headless 2 sphere {W}x{H}, 4 ranks on one "
+        f"card] {err.strip().splitlines()[0]}; PNGs equal one process's: "
+        f"{same_png}; fps 4 ranks {fps[0]} against one process {fps[1]}; "
+        f"{secs:.1f} s wall ({smi})")
+    if not all(same_png.values()) or "falls back" in err:
+        raise AssertionError("viewer --dp 4 differs from one process")
+    _, vr, vctl, vbasis = viewer.build_renderer(argparse.Namespace(
+        config=sph_cfg, device=dev, width=W, height=H, spp=1, ckpt=""))
+    vr.set_camera_basis(vbasis())
+    vr.set_denoise(True)
+    single = [(vr.render(vctl.camera.position), vr.last_frame_seconds)
+              for _ in range(2)]
+    del vr
+    results = spawn(phase25_denoised, 4, dev, sph_cfg, (W, H), 2,
+                    join_timeout=600)
+    frames = results[0][0]
+    eq = [np.array_equal(a[0], b[0]) for a, b in zip(frames, single)]
+    log(f"[25c viewer renderer, denoised, sphere {W}x{H}, 4 ranks on one "
+        f"card] frames equal one process: {eq}; fallback frames "
+        f"{[r[1] for r in results]}; accumulation pixels per rank "
+        f"{[r[2] for r in results]} of {W * H}; frame s 4 ranks "
+        f"{[round(f[1], 4) for f in frames]} against one process "
+        f"{[round(f[1], 4) for f in single]} ({smi})")
+    if not all(eq) or any(r[1] for r in results) \
+            or any(r[2] != W * H // 4 for r in results):
+        raise AssertionError("the viewer's ranks differ from one process")
+    tw, th = knot_size
+    live = {}
+    for dp in (1, 2):
+        argv = [sph_cfg, "--headless", "2", "--train-steps", "2",
+                "--train-batch", str(batch), "--width", str(tw),
+                "--height", str(th), "--output", f"{out_root}_live{dp}",
+                "--train-ckpt-dir", f"{out_root}_live{dp}_ckpt", *cli_dev]
+        if dp == 1:
+            text = run_cli(viewer.main, argv, keep=keep_frames)
+        else:
+            text, _, _ = run_module("neural_renderer_tpu_torch.cli.viewer",
+                                    argv + ["--dp", "2"], keep=keep_frames)
+        live[dp] = ([float(v) for v in re.findall(r"loss ([0-9.]+)", text)],
+                    npz_arrays(f"{out_root}_live{dp}_step4.npz"),
+                    npz_arrays(f"{out_root}_live{dp}_step4.adam.npz"),
+                    load_image(os.path.join(f"{out_root}_live{dp}",
+                                            "viewer_final.png")))
+    (l1, p1, m1, f1), (l2, p2, m2, f2) = live[1], live[2]
+    worst = {name: (float(np.abs(m2[f"exp_avg_{name}"]
+                                 - m1[f"exp_avg_{name}"]).max()
+                          / np.abs(m1[f"exp_avg_{name}"]).max()),
+                    float(np.abs(p2[name] - p1[name]).max()
+                          / np.abs(p1[name]).max())) for name in p1}
+    step = np.abs(f1.astype(np.int32) - f2.astype(np.int32)).max()
+    log(f"[25c train-while-render sphere {tw}x{th}, 2 steps of {batch} a "
+        f"frame, --dp 2 against one process] losses {l2} against {l1}; "
+        f"per parameter (max |d exp_avg| / max |exp_avg|, max |d param| / "
+        f"max |param|) after 4 steps: {worst}; final frames differ by at "
+        f"most {int(step)} u8 steps ({time.perf_counter() - t0:.1f} s for "
+        f"25c)")
+    if len(l1) != 2 or len(l2) != 2 \
+            or any(abs(a - b) > DP_LOSS_TOL * a for a, b in zip(l1, l2)) \
+            or any(g > DP_GRAD_TOL for g, _ in worst.values()):
+        raise AssertionError("train-while-render under --dp strays")
+
+    # (d) train --dp 2 --tp 2 as a user runs it, against one process -----
+    t0 = time.perf_counter()
+    tr_root = out_root + "_train"
+    common = [knot_cfg, "--batch-size", str(batch), "--segments-per-ray",
+              "3", "--lr-schedule", "cosine", "--log-every", "1", *cli_dev]
+
+    def keep_train(line):
+        return not line.startswith("step ") or " 20/20 " in f" {line}"
+
+    runs = {name: common + ["--steps", str(steps), "--ckpt-dir",
+                            os.path.join(tr_root, f"{name}_ckpt")]
+            for name, steps in (("one", 1), ("one20", 20))}
+    one = {name: run_cli(train_cli.main, argv, keep=keep_train)
+           for name, argv in runs.items()}
+    texts = []
+    for name, steps in (("dptp", 1), ("dptp20", 20)):
+        text, err, secs = run_module(
+            "neural_renderer_tpu_torch.cli.train",
+            common + ["--steps", str(steps), "--dp", "2", "--tp", "2",
+                      "--ckpt-dir", os.path.join(tr_root, f"{name}_ckpt")],
+            keep=keep_train)
+        texts.append(text)
+        log(f"[25d train --dp 2 --tp 2 --steps {steps}] {err.strip()}; "
+            f"{secs:.1f} s wall")
+    worst = {}
+    a, b = (npz_arrays(os.path.join(tr_root, f"{n}_step1.adam.npz"))
+            for n in ("one", "dptp"))
+    pa, pb = (npz_arrays(os.path.join(tr_root, f"{n}_step1.npz"))
+              for n in ("one", "dptp"))
+    for name in pa:
+        ea, eb = a[f"exp_avg_{name}"], b[f"exp_avg_{name}"]
+        top = np.abs(ea).max()
+        big = np.abs(ea) > DP_GRAD_TOL * top
+        worst[name] = (float(np.abs(ea - eb).max() / top),
+                       float(np.abs(pa[name] - pb[name])[big].max()
+                             / np.abs(pa[name]).max()))
+    log(f"[25d train step 1, dp2 x tp2 against one process] per parameter "
+        f"(max |d exp_avg| / max |exp_avg|, max |d param| / max |param| "
+        f"where |exp_avg| > {DP_GRAD_TOL} x max): {worst}")
+    if any(g > DP_GRAD_TOL or p > 1e-6 for g, p in worst.values()):
+        raise AssertionError("the dp/tp step differs from one process")
+    step_re = r"step 20/20 loss=([0-9.]+).*\(([0-9.]+) Msegments/s\)"
+    l1, r1 = (float(v) for v in re.search(step_re, one["one20"]).groups())
+    l4, r4 = (float(v) for v in re.search(step_re, texts[1]).groups())
+    shard = re.search(r"rank network \+ moment bytes: (.*)",
+                      texts[1]).group(1)
+    log(f"[25d train 20 steps of {batch} x 3] loss at step 20: dp2 x tp2 "
+        f"{l4!r}, one process {l1!r}; steps/s {r4 * 1e6 / batch:.3f} "
+        f"against {r1 * 1e6 / batch:.3f}; per rank {shard} ({smi})")
+    if abs(l4 - l1) > DP_LOSS_TOL * l1:
+        raise AssertionError("the dp/tp loss at step 20 strays")
+    ckpt = os.path.join(tr_root, "dptp20_step20.npz")
+    text = run_evaluate(evaluate, [
+        knot_cfg, "--width", "96", "--height", "54", "--total-samples", "1",
+        "--batch-spp", "1", "--ckpt", ckpt, "--output", tr_root + "_eval",
+        *cli_dev])
+    log(f"[25d] the dp2 x tp2 checkpoint renders: PSNR / FLIP "
+        f"{parse_metrics(text)} ({time.perf_counter() - t0:.1f} s for 25d)")
+
+    # (e) NCCL -------------------------------------------------------------
+    t0 = time.perf_counter()
+    store = os.path.join(out_root + "_nccl", "store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    backend = "nccl" if on_gpu else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(dp=1)
+        acc0 = torch.zeros((3, W * H), device=dev)
+        t_img, t_acc, t_g = parallel.render_neural_frame_tiled(
+            sctx, senv, sparams, acc0, mesh, return_guides=True)
+        k_img, _ = parallel.render_gt_frame_tiled(
+            kgt, kenv, kparams, torch.zeros((3, kw * kh), device=dev), mesh)
+        t_den = parallel.bilateral_denoise_tiled(t_acc.reshape(3, H, W), 1,
+                                                 *t_g, mesh)
+        ok = (torch.equal(t_img, whole[0]) and torch.equal(t_acc, whole[1])
+              and torch.equal(k_img, kwhole[0]) and torch.equal(t_den, den))
+    finally:
+        dist.destroy_process_group()
+    log(f"[25e {backend} world of 1] tiled sphere, knot GT and denoiser "
+        f"equal the plain ones: {ok} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("the NCCL tiled frames differ")
+    n_gpu = torch.cuda.device_count() if on_gpu else 0
+    if n_gpu >= 4:
+        text, err, secs = run_module(
+            "neural_renderer_tpu_torch.cli.evaluate",
+            [knot_cfg, "--width", str(kw), "--height", str(kh4), "--output",
+             out_root + "_nccl", "--dp", "4", *samples],
+            keep=lambda ln: " ETA " not in ln)
+        same = same_files(ev1, out_root + "_nccl",
+                          ("ground_truth.png", "neural.png"))
+        log(f"[25e evaluate --dp 4 {kw}x{kh4} over NCCL on 4 GPUs] "
+            f"{err.strip()}; PNGs equal one process's: {same}; Mrays/s "
+            f"{pass_rates(text)} against one process "
+            f"{pass_rates(ev_text1)}")
+        if not all(same.values()) or "nccl" not in err:
+            raise AssertionError("evaluate over NCCL differs from one "
+                                 "process")
+    else:
+        log(f"[25e] evaluate --dp 4 over NCCL on four GPUs not run: this "
+            f"machine has {n_gpu} GPU (NCCL needs a GPU per rank)")
+
+    # (f) the march's "trace" variants -------------------------------------
+    t0 = time.perf_counter()
+    variants = {}
+    for name in ("ENTRY_RETRY_DEFAULT", "CAMERA_ENTRY_DEFAULT"):
+        saved = getattr(neural_march, name)
+        setattr(neural_march, name, "trace")
+        try:
+            variants[name], la = counted(lambda: render_neural_frame(
+                sctx, senv, sparams, torch.zeros((3, W * H), device=dev)))
+        finally:
+            setattr(neural_march, name, saved)
+        log(f"[25f {name}=trace sphere {W}x{H}] launches {la}")
+    retry_same = torch.equal(variants["ENTRY_RETRY_DEFAULT"][0], whole[0])
+    differ = (variants["CAMERA_ENTRY_DEFAULT"][0] != whole[0]).any(-1)
+    n_diff = int(differ.sum())
+    log(f"[25f] NR_ENTRY_RETRY=trace equals derive: {retry_same}; "
+        f"NR_CAMERA_ENTRY=trace differs from fwd2 on {n_diff} of {W * H} "
+        f"pixels ({n_diff / (W * H):.6f}; max u8 step "
+        f"{int((variants['CAMERA_ENTRY_DEFAULT'][0].int() - whole[0].int()).abs().max())}"
+        f") ({time.perf_counter() - t0:.1f} s)")
+    if not retry_same or n_diff > ENTRY_TRACE_SHARE * W * H:
+        raise AssertionError("a march variant strays from the default")
+
+    # (g) resume the JAX package's checkpoint without orbax -----------------
+    t0 = time.perf_counter()
+    import importlib.util
+    has_orbax = importlib.util.find_spec("orbax") is not None
+    text = run_cli(train_cli.main, common + [
+        "--steps", "48010", "--resume",
+        os.path.join(ROOT, "configs", "knot", "lane_step48000.npz"),
+        "--ckpt-dir", os.path.join(tr_root, "resume_ckpt")])
+    resumed = [float(v) for v in re.findall(r"step 480\d\d/48010 loss="
+                                            r"([0-9.]+)", text)]
+    log(f"[25g resume lane_step48000.npz (orbax importable here: "
+        f"{has_orbax})] losses {resumed}; the 48k weights scored "
+        f"{trained_loss!r} in phase 10, a fresh start from the same seed "
+        f"{fresh_loss!r} ({time.perf_counter() - t0:.1f} s)")
+    if not (len(resumed) == 10 and "from step 48000" in text
+            and max(resumed) < 0.03 and resumed[0] < 0.1 * fresh_loss):
+        raise AssertionError("the resumed run is not at the checkpoint's "
+                             "level")
+
 
 
 if __name__ == "__main__":

@@ -10,12 +10,16 @@ that is not a multiple of `--batch-spp`, renders them one `render()` call
 each instead, the last batch taking the rest. `--profile` prints the
 per-stage timing table after each pass.
 
+`--dp N` renders every pass in pixel stripes over N ranks, which the
+command spawns itself (parallel/launch.py: one process per rank, rank r on
+cuda:(r % device_count), NCCL when each rank has a GPU of its own, else
+gloo; `--device cpu` runs them on the CPU over gloo). Rank 0 prints and
+writes the images.
+
 Usage: python -m neural_renderer_tpu_torch.cli.evaluate <config.json>
        [--width W --height H --output DIR --batch-spp N --total-samples N
         --ckpt FILE --no-additional --host-loop --chunk-batches N
-        --profile --device cuda|cpu]
-
-Not ported: `--dp` > 1 (pixel stripes over several GPUs), refused by name.
+        --profile --dp N --device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -56,23 +60,40 @@ def main(argv=None) -> int:
                              "ns/ray of the reference's categories) after "
                              "each pass; runs the stages again one by one")
     parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel GPUs (not ported)")
+                        help="data-parallel ranks: pixel stripes over N "
+                             "processes (multi-GPU)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.dp > 1:
-        print("evaluate: --dp > 1 (pixel stripes over several GPUs) is not "
-              "ported yet; it comes with the multi-GPU slice",
+    if args.dp < 1:
+        print("evaluate: --dp (multi-GPU pixel stripes) must be at least 1",
               file=sys.stderr)
         return 1
-
     import torch
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("evaluate: no CUDA device found; this program runs on the GPU "
               "(pass --device cpu for a small CPU run)", file=sys.stderr)
         return 1
-    on_gpu = args.device.startswith("cuda")
+    if args.dp > 1:
+        from ..parallel.launch import describe, spawn
+        print(f"evaluate: pixel stripes over {describe(args.dp, args.device)}",
+              file=sys.stderr)
+        return max(spawn(_rank_run, args.dp, args.device, args))
+    return run(args, torch.device(args.device))
+
+
+def _rank_run(rank, world, device, args) -> int:
+    from ..parallel import make_mesh
+    return run(args, device, make_mesh(dp=world, tp=1))
+
+
+def run(args, device, mesh=None) -> int:
+    """The comparison on `device`; with a mesh, this rank's share of
+    pixel-stripe rendering (rank 0 prints, writes and scores)."""
+    import torch
+    on_gpu = device.type == "cuda"
+    lead = mesh is None or mesh.get_rank() == 0
 
     print("=== Comparison Renderer ===")
 
@@ -89,7 +110,8 @@ def main(argv=None) -> int:
         print("evaluate: --batch-spp and the total sample count must be "
               "positive", file=sys.stderr)
         return 1
-    os.makedirs(args.output, exist_ok=True)
+    if lead:
+        os.makedirs(args.output, exist_ok=True)
 
     # Camera: the position is scaled by the original mesh's scale.
     pos, yaw, pitch = matrix_to_camera_state(cfg.camera.matrix)
@@ -119,7 +141,8 @@ def main(argv=None) -> int:
               "shell", file=sys.stderr)
         return 1
 
-    renderer = Renderer(scene, cfg.neural_network, device=args.device)
+    renderer = Renderer(scene, cfg.neural_network, device=device)
+    renderer.set_device_mesh(mesh)
     renderer.set_constant_neural_color(cfg.material.use_constant_neural_color,
                                        cfg.material.constant_neural_color)
     if args.no_additional:
@@ -145,14 +168,14 @@ def main(argv=None) -> int:
         renderer.set_use_neural_query(neural)
         renderer.reset_samples()
         if on_gpu:
-            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.reset_peak_memory_stats(device)
         bar = ProgressBar()
         if args.host_loop or total_samples % args.batch_spp != 0:
             # One render() per batch, the last one taking the rest.
             bar.begin(label, -(-total_samples // args.batch_spp))
             remaining, it = total_samples, 0
             if on_gpu:
-                torch.cuda.synchronize()
+                torch.cuda.synchronize(device)
             t0 = time.perf_counter()
             while remaining > 0:
                 batch = min(remaining, args.batch_spp)
@@ -174,7 +197,8 @@ def main(argv=None) -> int:
               f"({renderer.last_frame_seconds:.3f} s)")
         if on_gpu:
             print(f"{label}: peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+                  f"{torch.cuda.max_memory_allocated(device) / 2**20:.0f} "
+                  "MiB")
         return img
 
     def profile_pass(neural: bool):
@@ -183,11 +207,13 @@ def main(argv=None) -> int:
             print(profile_renderer(renderer, pos, neural).table())
 
     gt = render_pass("Ground truth", neural=False)
-    save_png(os.path.join(args.output, "ground_truth.png"), gt)
     profile_pass(neural=False)
     neural = render_pass("Neural", neural=True)
-    save_png(os.path.join(args.output, "neural.png"), neural)
     profile_pass(neural=True)
+    if not lead:
+        return 0
+    save_png(os.path.join(args.output, "ground_truth.png"), gt)
+    save_png(os.path.join(args.output, "neural.png"), neural)
 
     psnr = compute_psnr(gt, neural)
     print("\n=== Metrics ===")
@@ -195,7 +221,7 @@ def main(argv=None) -> int:
     print("Computing FLIP error...")
     mean_err, max_err = compute_flip(
         gt, neural, output_path=os.path.join(args.output, "flip_error.png"),
-        device=args.device)
+        device=device)
     print(f"FLIP max error: {max_err:.4f}")
     print(f"FLIP: {mean_err:.4f} (mean)")
     print("\nComparison complete.")

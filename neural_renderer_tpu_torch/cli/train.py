@@ -10,25 +10,31 @@ tcnn-layout network is also exported as the reference's flat FP16 blob,
 `--out` (default `<config>_weights.bin`). Runs on the GPU unless `--device
 cpu` is given.
 
+`--dp D --tp T` trains on D x T ranks that the command spawns
+(parallel/launch.py; `--device cpu` runs them on the CPU over gloo): the
+batch's rows are split over the ranks, each rank holds 1/T of the network
+and of its AdamW moments, and a step equals the single-process step up to
+the order of the f32 sums (parallel/shardings.py). Rank 0 prints and writes
+the checkpoint. An orbax checkpoint of the JAX package resumes through its
+export (scripts/export_lane_ckpt_npz.py writes the `.npz` and `.adam.npz`).
+
 Usage: python -m neural_renderer_tpu_torch.cli.train <config.json>
          [--steps N --batch-size B --lr LR --ckpt-dir DIR --resume CKPT
           --out BLOB
           --lr-schedule constant|cosine --segments-per-ray S
-          --fused auto|on|off --device cuda|cpu]
-
-Not ported, each refused by name: `--dp`/`--tp` > 1 and resuming from an
-orbax checkpoint of the JAX package.
+          --fused auto|on|off --dp D --tp T --device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Shell-network trainer")
     parser.add_argument("config")
     parser.add_argument("--steps", type=int, default=2000)
@@ -53,9 +59,10 @@ def main(argv=None) -> int:
                              "e.g. configs/knot)")
     parser.add_argument("--log-every", type=int, default=100)
     parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel devices (not ported)")
+                        help="data-parallel ranks (the batch's rows split)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel devices (not ported)")
+                        help="tensor-parallel ranks (network and moments "
+                             "sharded)")
     parser.add_argument("--fused", default="auto",
                         choices=("auto", "on", "off"),
                         help="lane-grid gradient path: 'auto' the CUDA "
@@ -64,19 +71,38 @@ def main(argv=None) -> int:
                              "plain PyTorch forward")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
 
-    if args.dp > 1 or args.tp > 1:
-        print("train: --dp/--tp > 1 (data- and tensor-parallel training) is "
-              "not ported yet", file=sys.stderr)
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.dp < 1 or args.tp < 1:
+        print("train: --dp and --tp (multi-GPU ranks) must be at least 1",
+              file=sys.stderr)
         return 1
-
     import torch
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("train: no CUDA device found; this program runs on the GPU "
               "(pass --device cpu for a small CPU run)", file=sys.stderr)
         return 1
-    on_gpu = args.device.startswith("cuda")
+    world = args.dp * args.tp
+    if world > 1:
+        from ..parallel.launch import describe, spawn
+        print(f"train: dp={args.dp} x tp={args.tp}, "
+              f"{describe(world, args.device)}", file=sys.stderr)
+        return max(spawn(_rank_run, world, args.device, args))
+    return run(args, torch.device(args.device))
+
+
+def _rank_run(rank, world, device, args) -> int:
+    from ..parallel import make_mesh
+    return run(args, device, make_mesh(dp=args.dp, tp=args.tp))
+
+
+def run(args, dev, mesh=None) -> int:
+    """Training on `dev`; with a mesh, this rank's share of it."""
+    import torch
+    on_gpu = dev.type == "cuda"
 
     from ..config import load_config
     from ..models import nbvh
@@ -107,7 +133,6 @@ def main(argv=None) -> int:
                        segments_per_ray=args.segments_per_ray,
                        fused_kernel=args.fused)
 
-    dev = torch.device(args.device)
     gt = scene.original_mesh.to_tensors(dev)
     outer = scene.outer_shell.to_tensors(dev)
     inner = scene.inner_shell.to_tensors(dev)
@@ -119,10 +144,18 @@ def main(argv=None) -> int:
         step_fn = make_train_step(tcfg, net_config, gt, outer, inner, omin,
                                   inv_extent, radius,
                                   global_row=scene_global_row(scene, dev),
-                                  device=dev)
+                                  device=dev, mesh=mesh)
     except (OSError, ValueError) as e:
+        if mesh is not None:
+            raise
         print(f"train: {e}", file=sys.stderr)
         return 1
+    unsharded = sum(p.numel() * p.element_size()
+                    for p in state.net.parameters())
+    if mesh is not None:
+        from ..parallel import shard_train_state
+        state = shard_train_state(state, mesh)
+        print(f"Device mesh: dp={args.dp} tp={args.tp}")
     print(f"Training on {torch.cuda.get_device_name(dev) if on_gpu else 'cpu'}"
           f" from step {state.step}")
 
@@ -145,12 +178,32 @@ def main(argv=None) -> int:
         if args.ckpt_dir and (i + 1) % tcfg.checkpoint_every == 0:
             print(f"checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
 
+    if mesh is not None:
+        report_shard_bytes(state, unsharded)
     print(f"final checkpoint: {save_checkpoint(ckpt_dir, state)}")
     if net_config.grid_type == "tcnn":
+        if mesh is not None:
+            state = dataclasses.replace(state, net=state.net.gather())
+            if mesh.get_rank() != 0:
+                return 0
         out = args.out or (os.path.splitext(args.config)[0] + "_weights.bin")
         export_reference_blob(out, state, net_config)
         print(f"exported flat FP16 blob: {out}")
     return 0
+
+
+def report_shard_bytes(state, unsharded: int):
+    """Print every rank's network + AdamW moment bytes beside the
+    unsharded network's and moments' (three times the network)."""
+    import torch
+    from ..parallel.shardings import all_gather_cat, state_bytes
+    b = state_bytes(state)
+    mine = torch.tensor([[b["network_bytes"], b["moment_bytes"]]],
+                        dtype=torch.int64, device=state.net.device)
+    every = all_gather_cat(mine, None, 0).tolist()
+    print("rank network + moment bytes: "
+          + ", ".join(f"{n} + {m}" for n, m in every)
+          + f" (unsharded {unsharded} + {2 * unsharded})")
 
 
 if __name__ == "__main__":

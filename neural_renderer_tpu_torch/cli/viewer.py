@@ -28,14 +28,20 @@ package's trainer (--train-resume; an orbax directory is refused).
 orbiting camera at the motion-drop preview size, then the config's sample
 count at full size.
 
+--dp N renders in pixel stripes over N ranks that the command spawns
+(parallel/launch.py; `--device cpu` runs them on the CPU over gloo), the
+denoiser through its tiled form. Every rank renders alike; rank 0 prints,
+writes the PNGs, runs the window and sends its view settings to the other
+ranks before each frame. Train-while-render runs the dp step of `train
+--dp`: the ranks share each batch and hold one network, which every rank
+pushes into its renderer.
+
 Usage: python -m neural_renderer_tpu_torch.cli.viewer <config.json>
          [--headless N] [--output DIR] [--width W --height H] [--spp N]
          [--train-steps N --train-batch B --train-lr LR
           --train-ckpt-dir DIR --train-resume CKPT]
          [--bench-motion S --motion-drop D --chunk-batches N]
-         [--ckpt FILE] [--device cuda|cpu]
-
-Not ported: `--dp` > 1 (pixel stripes over several GPUs), refused by name.
+         [--ckpt FILE] [--dp N] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ def build_renderer(args):
           "triangles")
 
     renderer = Renderer(scene, cfg.neural_network, device=args.device)
+    renderer.set_device_mesh(getattr(args, "mesh", None))
     renderer.resize(args.width or cfg.rendering.width,
                     args.height or cfg.rendering.height)
     renderer.set_bounce_count(cfg.rendering.bounce_count)
@@ -134,11 +141,14 @@ def build_renderer(args):
 class LiveTrainer:
     """Train-while-render: `steps_per_frame` optimizer steps per call of
     run(), then the network is pushed into the renderer. The sampler,
-    losses and AdamW are the train CLI's (train/trainer.py)."""
+    losses and AdamW are the train CLI's (train/trainer.py); with a device
+    mesh (every rank builds one) the step is the meshed one: the ranks
+    split each batch's rows and update one network."""
 
     def __init__(self, scene, renderer, steps_per_frame: int,
                  batch_size: int = 16384, lr: float = 1e-3,
-                 resume: str = "", seed: int = 0, warm_start: bool = False):
+                 resume: str = "", seed: int = 0, warm_start: bool = False,
+                 mesh=None):
         import torch
 
         from ..train import (TrainConfig, init_train_state, make_optimizer,
@@ -163,12 +173,16 @@ class LiveTrainer:
             self.state = TrainState(net, opt, sched, 0)
         else:
             self.state = init_train_state(tcfg, renderer.net_config, dev)
+        if mesh is not None:
+            from ..parallel import shard_train_state
+            self.state = shard_train_state(self.state, mesh)
         omin, inv_extent, radius = segment_domain(scene, dev)
         self.step_fn = make_train_step(
             tcfg, renderer.net_config, scene.original_mesh.to_tensors(dev),
             scene.outer_shell.to_tensors(dev),
             scene.inner_shell.to_tensors(dev), omin, inv_extent, radius,
-            global_row=scene_global_row(scene, dev), device=dev)
+            global_row=scene_global_row(scene, dev), device=dev, mesh=mesh)
+        # Seeded alike on every rank: the meshed step draws the same rays.
         self.generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def run(self) -> dict:
@@ -178,7 +192,9 @@ class LiveTrainer:
             self.state, metrics = self.step_fn(self.state, self.generator)
         if metrics is not None:
             self.last_metrics = {k: float(v) for k, v in metrics.items()}
-        self.renderer.set_network(self.state.net)
+        net = self.state.net
+        self.renderer.set_network(net.gather() if hasattr(net, "gather")
+                                  else net)
         return self.last_metrics
 
     def save(self, ckpt_dir: str) -> str:
@@ -201,10 +217,27 @@ def make_live_trainer(args, cfg, scene, renderer):
     warm = renderer.net is not None and not args.train_resume
     trainer = LiveTrainer(scene, renderer, args.train_steps,
                           batch_size=args.train_batch, lr=args.train_lr,
-                          resume=args.train_resume, warm_start=warm)
+                          resume=args.train_resume, warm_start=warm,
+                          mesh=getattr(args, "mesh", None))
     print(f"Live training: {args.train_steps} steps/frame, batch "
           f"{args.train_batch}" + (" (warm start)" if warm else ""))
     return trainer
+
+
+def _lead(args) -> bool:
+    """Whether this process prints and writes: rank 0, or the only one."""
+    mesh = getattr(args, "mesh", None)
+    return mesh is None or mesh.get_rank() == 0
+
+
+def _agree(args, value):
+    """Rank 0's `value` on every rank (the value itself without a mesh)."""
+    if getattr(args, "mesh", None) is None:
+        return value
+    import torch.distributed as dist
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def run_headless(args):
@@ -226,10 +259,11 @@ def run_headless(args):
         fps = 1.0 / max(renderer.last_frame_seconds, 1e-9)
         print(f"frame {i}: {renderer.accum_sample_count} spp accumulated, "
               f"{renderer.mrays_per_second:.1f} Mrays/s, {fps:.2f} fps{loss}")
-        if args.save_sequence:
+        if args.save_sequence and _lead(args):
             save_png(os.path.join(args.output, f"frame_{i:04d}.png"), img)
-    save_png(os.path.join(args.output, "viewer_final.png"),
-             renderer.device_pixels())
+    if _lead(args):
+        save_png(os.path.join(args.output, "viewer_final.png"),
+                 renderer.device_pixels())
     if trainer is not None and args.train_ckpt_dir:
         print(f"checkpoint: {trainer.save(args.train_ckpt_dir)}")
     return 0
@@ -261,7 +295,7 @@ def run_motion_bench(args):
     frame_times = []
     t0 = time.perf_counter()
     t_end = t0 + args.bench_motion
-    while time.perf_counter() < t_end:
+    while _agree(args, time.perf_counter() < t_end):
         ang = 0.2 * (time.perf_counter() - t0)
         pos = np.array([radius * math.sin(ang), pos0[1],
                         radius * math.cos(ang)])
@@ -297,8 +331,9 @@ def run_motion_bench(args):
     print(f"full-res single-batch rate: {sfps:.2f} batches/s at spp "
           f"{args.spp}")
     from ..metrics import save_png
-    os.makedirs(args.output, exist_ok=True)
-    save_png(os.path.join(args.output, "bench_motion_final.png"), img)
+    if _lead(args):
+        os.makedirs(args.output, exist_ok=True)
+        save_png(os.path.join(args.output, "bench_motion_final.png"), img)
     return 0
 
 
@@ -392,20 +427,61 @@ def apply_key(renderer, controller, key: str, pressed: set | None = None,
     return False
 
 
-def run_interactive(args):
+def gui_problem():
+    """Why no window can open (a message), or None."""
     try:
         import matplotlib
-        import matplotlib.pyplot as plt
+        import matplotlib.pyplot  # noqa: F401
     except ImportError:
-        print("matplotlib unavailable; use --headless", file=sys.stderr)
-        return 1
+        return "matplotlib unavailable; use --headless"
     backend = matplotlib.get_backend().lower()
     # A file-output backend cannot open a window.
     if backend in ("agg", "pdf", "svg", "svgz", "ps", "eps", "cairo",
                    "template", "pgf") or "inline" in backend:
-        print(f"no GUI backend (matplotlib is on {backend}) — "
-              "use --headless N", file=sys.stderr)
+        return (f"no GUI backend (matplotlib is on {backend}) — "
+                "use --headless N")
+    return None
+
+
+# The Renderer's view settings rank 0 sends to the other ranks per frame.
+VIEW_STATE = ("use_neural_query", "lambert_view", "bounce_count",
+              "samples_per_pixel", "classic_mesh_index", "envmap_rotation",
+              "env_strength", "use_additional_mesh",
+              "use_constant_neural_color", "constant_neural_color",
+              "use_direct_env_color", "direct_env_color", "denoise")
+
+
+def _follow(args):
+    """A rank other than 0 in the interactive mode: render rank 0's view,
+    frame by frame, until it quits."""
+    cfg, renderer, controller, _ = build_renderer(args)
+    trainer = make_live_trainer(args, cfg, renderer.scene, renderer)
+    while True:
+        view = _agree(args, None)
+        if view is None:
+            break
+        settings, (w, h), basis, pos, training = view
+        for k, v in settings.items():
+            setattr(renderer, k, v)
+        renderer.resize(w, h)
+        renderer.set_camera_basis(basis)
+        if trainer is not None and training:
+            trainer.run()
+        renderer.render(pos)
+    # Rank 0 writes the checkpoint; its gather needs every rank.
+    if trainer is not None and args.train_ckpt_dir:
+        trainer.save(args.train_ckpt_dir)
+    return 0
+
+
+def run_interactive(args):
+    if not _lead(args):
+        return _follow(args)
+    problem = gui_problem()
+    if problem is not None:
+        print(problem, file=sys.stderr)
         return 1
+    import matplotlib.pyplot as plt
 
     cfg, renderer, controller, current_basis = build_renderer(args)
     trainer = make_live_trainer(args, cfg, renderer.scene, renderer)
@@ -440,14 +516,19 @@ def run_interactive(args):
         last = now
         if pressed:
             controller.apply_keys(pressed, dt)
-        loss = ""
-        if trainer is not None and trainer.enabled:
-            m = trainer.run()
-            loss = f" | loss {m.get('total', float('nan')):.4f}"
         renderer.set_camera_basis(current_basis())
         # Drop the resolution while flying, restore it at rest.
         w, h = scaler.update(bool(pressed), now)
         renderer.resize(w, h)
+        training = trainer is not None and trainer.enabled
+        # The view goes out before the training step, whose collectives
+        # the other ranks then meet in the same order (_follow).
+        _agree(args, ({k: getattr(renderer, k) for k in VIEW_STATE}, (w, h),
+                      renderer.basis, controller.camera.position, training))
+        loss = ""
+        if training:
+            m = trainer.run()
+            loss = f" | loss {m.get('total', float('nan')):.4f}"
         img = scaler.upscale(renderer.render(controller.camera.position))
         im.set_data(img)
         ax.set_title(f"{renderer.accum_sample_count} spp | "
@@ -455,6 +536,7 @@ def run_interactive(args):
                      f"neural={renderer.use_neural_query}{loss}")
         fig.canvas.draw_idle()
         fig.canvas.flush_events()
+    _agree(args, None)
     if trainer is not None and args.train_ckpt_dir:
         print(f"checkpoint: {trainer.save(args.train_ckpt_dir)}")
     return 0
@@ -475,7 +557,8 @@ def main(argv=None) -> int:
                         help="divide the resolution by this while the "
                              "camera moves (1 disables)")
     parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel GPUs (not ported)")
+                        help="data-parallel ranks: pixel stripes over N "
+                             "processes (multi-GPU)")
     parser.add_argument("--train-steps", type=int, default=0, metavar="N",
                         help="train-while-render: N optimizer steps per frame")
     parser.add_argument("--train-batch", type=int, default=16384)
@@ -501,9 +584,8 @@ def main(argv=None) -> int:
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.dp > 1:
-        print("viewer: --dp > 1 (pixel stripes over several GPUs) is not "
-              "ported yet; it comes with the multi-GPU slice",
+    if args.dp < 1:
+        print("viewer: --dp (multi-GPU pixel stripes) must be at least 1",
               file=sys.stderr)
         return 1
     import torch
@@ -511,16 +593,42 @@ def main(argv=None) -> int:
         print("viewer: no CUDA device found; this program runs on the GPU "
               "(pass --device cpu for a small CPU run)", file=sys.stderr)
         return 1
+    if args.dp > 1:
+        if args.bench_motion <= 0 and args.headless <= 0:
+            problem = gui_problem()
+            if problem is not None:
+                print(problem, file=sys.stderr)
+                return 1
+        from ..parallel.launch import describe, spawn
+        print(f"viewer: pixel stripes over {describe(args.dp, args.device)}",
+              file=sys.stderr)
+        return max(spawn(_rank_run, args.dp, args.device, args))
+    return dispatch(args)
+
+
+def _rank_run(rank, world, device, args) -> int:
+    # A rank's error propagates, ending every rank.
+    from ..parallel import make_mesh
+    args.device = str(device)
+    args.mesh = make_mesh(dp=world, tp=1)
+    return _mode(args)
+
+
+def _mode(args) -> int:
+    if args.bench_motion > 0:
+        return run_motion_bench(args)
+    if args.headless > 0:
+        return run_headless(args)
+    return run_interactive(args)
+
+
+def dispatch(args) -> int:
+    """The viewer mode the flags select, on this process's device."""
     try:
-        if args.bench_motion > 0:
-            return run_motion_bench(args)
-        if args.headless > 0:
-            return run_headless(args)
-        return run_interactive(args)
+        return _mode(args)
     except (RuntimeError, ValueError) as e:
         print(f"viewer: {e}", file=sys.stderr)
         return 1
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -120,14 +120,18 @@ def _camera_hits(ctx: NeuralContext, params, origins, dirs, additional):
 def render_neural_frame(ctx: NeuralContext, env, params, accum,
                         use_additional: bool = False,
                         bounce_compaction: bool | None = None,
-                        additional_mesh=None, return_guides: bool = False):
+                        additional_mesh=None, return_guides: bool = False,
+                        row0: int = 0, n_rows: int | None = None):
     """One accumulation batch of neural path tracing. Returns
     (image_u8 [H, W, 3], new_accum [3, H*W])[, (guide_normals,
     guide_albedo)]: the guides are the merged camera hits'.
     use_additional traces `additional_mesh` (MeshTensors) beside the
-    shells, where it is not empty."""
+    shells, where it is not empty. row0 / n_rows render a horizontal stripe
+    with global pixel ids (parallel/shardings.py); accum and the outputs
+    then cover that stripe."""
     additional = _additional(use_additional, additional_mesh)
-    pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(params)
+    pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(params, row0,
+                                                             n_rows)
     hits = _camera_hits(ctx, params, origins, dirs, additional)
     path = pt.init_path_state(params, env, hits, dirs)
 
@@ -151,7 +155,7 @@ def render_neural_frame(ctx: NeuralContext, env, params, accum,
 
     img, new_accum = pt.finalize(params, path.radiance, accum)
     if return_guides:
-        return img, new_accum, pt.guide_buffers(params, hits)
+        return img, new_accum, pt.guide_buffers(params, hits, n_rows)
     return img, new_accum
 
 

@@ -1,11 +1,20 @@
 """Multi-segment shell march: the neural intersection query.
 
 Port of `neural_renderer_tpu/render/neural_march.py`: `NeuralContext`,
-`trace_neural_segments` and `bounce_shell_entry_and_early_term`, with their
-defaults: the camera "fwd2" entry (one dual-shell sweep with the strict
-second outer-forward crossing serves both the shell entry and iteration
-1), the "derive" re-entry (no retry trace), the bad-ray fix-ups and at most
-MAX_SEGMENT_ITERATIONS iterations.
+`trace_neural_segments`, `bounce_shell_entry_and_early_term`, the shell
+entries `_shell_entry_camera` and `_shell_entry_from_rays`, the bad-ray
+fix-ups and at most MAX_SEGMENT_ITERATIONS iterations. Two strategies are
+chosen per call or, by default, from the environment at import, as the JAX
+package reads them:
+  * the camera entry, NR_CAMERA_ENTRY: "fwd2" (default; one dual-shell
+    sweep with the strict second outer-forward crossing serves both the
+    shell entry and iteration 1) or "trace" (a FORWARD_ONLY trace of the
+    outer shell, then iteration 1 through the compaction like any other);
+  * the re-entry of rays that start inside the outer shell,
+    NR_ENTRY_RETRY: "derive" (default; no retry trace: the sweep from the
+    origin already saw every forward crossing) or "trace" (the
+    reference-shaped exit-then-retry trace, the oracle "derive" is held
+    to).
 
 Compaction uses dynamic shapes (`torch.nonzero`) where the JAX package
 compacts into fixed capacities under `lax.cond`; per-ray math does not
@@ -18,6 +27,7 @@ application, re-entry from the sweep's outer_fwd.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -31,6 +41,8 @@ from .pathtrace import HitState
 MAX_SEGMENT_ITERATIONS = 10
 SEGMENT_EPSILON = 1e-8
 _COMPACT_MIN_RAYS = 4096
+CAMERA_ENTRY_DEFAULT = os.environ.get("NR_CAMERA_ENTRY", "fwd2")
+ENTRY_RETRY_DEFAULT = os.environ.get("NR_ENTRY_RETRY", "derive")
 
 
 @dataclass
@@ -183,18 +195,92 @@ def _camera_fwd2_entry(ctx, origins, dirs):
     return entry_pos, active, accum_t, sw1
 
 
+def _shell_entry_camera(outer, origins, dirs):
+    """The camera rays' shell entry by a FORWARD_ONLY trace of the outer
+    shell. Returns (entry_pos, active, accum_t)."""
+    res = traversal.trace_mesh(outer, origins, dirs, traversal.FORWARD_ONLY)
+    active = res.hit
+    entry_pos = where3(active, origins + dirs * res.t[None, :],
+                       torch.zeros_like(origins))
+    accum_t = torch.where(active, res.t, torch.zeros_like(res.t))
+    return entry_pos, active, accum_t
+
+
+def _shell_entry_from_rays(outer, origins, dirs, ray_active, pdfs,
+                           retry: str | None = None):
+    """The shell entry of arbitrary rays (those with ray_active and pdf >
+    0): the closest FORWARD_ONLY crossing of the outer shell. Under
+    retry="trace" a ray without one that starts inside the outer shell
+    first exits (BACKWARD_ONLY) and re-enters by a trace from just past its
+    exit; under the default "derive" that retry is skipped, as it can find
+    nothing the origin's trace missed. Returns (entry_pos, hit, accum_t)."""
+    retry = ENTRY_RETRY_DEFAULT if retry is None else retry
+    ok = ray_active & (pdfs > 0.0)
+    res_fwd = traversal.trace_mesh(outer, origins, dirs,
+                                   traversal.FORWARD_ONLY, active=ok)
+    zero = torch.zeros_like(res_fwd.t)
+    if retry != "trace":
+        hit = ok & res_fwd.hit
+        entry_pos = where3(hit, origins + dirs * res_fwd.t[None, :],
+                           torch.zeros_like(origins))
+        return entry_pos, hit, torch.where(hit, res_fwd.t, zero)
+    need_restart = ok & ~res_fwd.hit
+    res_back = traversal.trace_mesh(outer, origins, dirs,
+                                    traversal.BACKWARD_ONLY,
+                                    active=need_restart)
+    return _retry_entry(outer, origins, dirs, ok, res_fwd.hit, res_fwd.t,
+                        need_restart & res_back.hit, res_back.t)
+
+
+def _retry_entry(outer, origins, dirs, ok, fwd_hit, fwd_t, restart, bwd_t):
+    """The "trace" retry: rays in `restart` re-enter by a FORWARD_ONLY trace
+    from SEGMENT_EPSILON past their backward crossing bwd_t; the others keep
+    their forward crossing fwd_t (where fwd_hit). Returns (entry_pos, hit,
+    accum_t)."""
+    zero = torch.zeros_like(fwd_t)
+    base_offset = torch.where(restart, bwd_t + SEGMENT_EPSILON, zero)
+    shifted_origin = origins + dirs * base_offset[None, :]
+    res_retry = traversal.trace_mesh(outer, shifted_origin, dirs,
+                                     traversal.FORWARD_ONLY, active=restart)
+    hit = ok & (fwd_hit | res_retry.hit)
+    entry_t = torch.where(fwd_hit, fwd_t, res_retry.t)
+    entry_origin = where3(fwd_hit, origins, shifted_origin)
+    entry_pos = entry_origin + dirs * entry_t[None, :]
+    total_t = torch.where(fwd_hit, entry_t, base_offset + entry_t)
+    return (where3(hit, entry_pos, torch.zeros_like(entry_pos)), hit,
+            torch.where(hit, total_t, zero))
+
+
 def trace_neural_segments(ctx: NeuralContext, params, origins, dirs,
                           entry=None,
-                          compaction: bool | None = None) -> HitState:
+                          compaction: bool | None = None,
+                          ray_active=None, pdfs=None,
+                          camera_rays: bool = True,
+                          camera_entry: str | None = None) -> HitState:
     """Full multi-segment march; returns a HitState over [N] rays. `entry`
     supplies (entry_pos, active, accum_t), as the bounce stage does from its
-    shell sweep; without it the rays are camera rays and take the fwd2
-    entry."""
+    shell sweep. Without it, camera rays take the `camera_entry` strategy
+    (default CAMERA_ENTRY_DEFAULT), and other rays (camera_rays=False,
+    gated by ray_active and pdfs) `_shell_entry_from_rays`."""
     n = origins.shape[1]
     dev = origins.device
+    camera_entry = CAMERA_ENTRY_DEFAULT if camera_entry is None \
+        else camera_entry
+    if camera_entry not in ("fwd2", "trace"):
+        raise ValueError(f"unknown camera_entry '{camera_entry}'")
     sw_first = None
     if entry is not None:
         entry_pos, active, accum_t = entry
+    elif not camera_rays:
+        ray_active = torch.ones(n, dtype=torch.bool, device=dev) \
+            if ray_active is None else ray_active
+        pdfs = torch.ones(n, dtype=torch.float32, device=dev) \
+            if pdfs is None else pdfs
+        entry_pos, active, accum_t = _shell_entry_from_rays(
+            ctx.outer, origins, dirs, ray_active, pdfs)
+    elif camera_entry == "trace":
+        entry_pos, active, accum_t = _shell_entry_camera(ctx.outer, origins,
+                                                         dirs)
     else:
         entry_pos, active, accum_t, sw_first = _camera_fwd2_entry(
             ctx, origins, dirs)
@@ -256,12 +342,16 @@ def trace_neural_segments(ctx: NeuralContext, params, origins, dirs,
         out.hit, _material_rows(params, n, dev), out.material_params))
 
 
-def bounce_shell_entry_and_early_term(ctx: NeuralContext, rays, path_active):
+def bounce_shell_entry_and_early_term(ctx: NeuralContext, rays, path_active,
+                                      retry: str | None = None):
     """Fused bounce-stage shell work: early termination (kill a path whose
     bounce ray meets the inner shell before the outer) and the shell entry
     from arbitrary rays share ONE shell sweep. Under the default "derive"
-    re-entry a ray without a forward outer crossing stays outside the march.
-    Returns (active, (entry_pos, entry_hit, accum_t))."""
+    re-entry (ENTRY_RETRY_DEFAULT) a ray without a forward outer crossing
+    stays outside the march; under "trace" one that starts inside the outer
+    shell re-enters by a FORWARD_ONLY trace from just past its backward
+    crossing. Returns (active, (entry_pos, entry_hit, accum_t))."""
+    retry = ENTRY_RETRY_DEFAULT if retry is None else retry
     sw = traversal.sweep_shells(ctx.outer, ctx.inner, rays.origin,
                                 rays.direction)
     outer_any = torch.minimum(sw.outer_fwd, sw.outer_bwd)
@@ -273,6 +363,11 @@ def bounce_shell_entry_and_early_term(ctx: NeuralContext, rays, path_active):
 
     ok = active & (rays.pdf > 0.0)
     fwd_hit = ok & (sw.outer_fwd < 1e30)
+    if retry == "trace":
+        restart = ok & ~fwd_hit & (sw.outer_bwd < 1e30)
+        return active, _retry_entry(ctx.outer, rays.origin, rays.direction,
+                                    ok, fwd_hit, sw.outer_fwd, restart,
+                                    sw.outer_bwd)
     entry_pos = where3(fwd_hit,
                        rays.origin + rays.direction * sw.outer_fwd[None, :],
                        torch.zeros_like(rays.origin))

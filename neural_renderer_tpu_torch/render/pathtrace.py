@@ -53,20 +53,25 @@ class BounceRays(NamedTuple):
     distance: torch.Tensor     # [N]
 
 
-def sample_grid(params):
-    """Flat [N] pixel coords + ids, s-major (sample = pixel + s * pixels)."""
-    p = params.height * params.width
+def sample_grid(params, row0: int = 0, n_rows: int | None = None):
+    """Flat [N] pixel coords + ids, s-major (sample = pixel + s * pixels).
+    row0 / n_rows select a horizontal stripe (pixel-stripe data
+    parallelism, parallel/shardings.py); pixel ids stay GLOBAL, so the RNG
+    streams equal the whole frame's whatever the tiling."""
+    rows = params.height if n_rows is None else int(n_rows)
+    p = rows * params.width
     spp = params.samples_per_pixel
-    pix = torch.arange(p, dtype=torch.int64, device=params.device)
-    px = pix % params.width
-    py = pix // params.width
+    local = torch.arange(p, dtype=torch.int64, device=params.device)
+    px = local % params.width
+    py = int(row0) + local // params.width
+    pix = py * params.width + px
     sample_of = torch.repeat_interleave(
         torch.arange(spp, dtype=torch.int64, device=params.device), p)
     return px.repeat(spp), py.repeat(spp), pix.repeat(spp), sample_of
 
 
-def primary_rays(params):
-    px, py, pixel_idx, s = sample_grid(params)
+def primary_rays(params, row0: int = 0, n_rows: int | None = None):
+    px, py, pixel_idx, s = sample_grid(params, row0, n_rows)
     state = init_rng(pixel_idx, params.sample_offset, s)
     state, origins, dirs = generate_primary_rays(
         px, py, state, params.cam_pos, params.cam_forward, params.cam_right,
@@ -272,20 +277,25 @@ def lambert_shade(params, env, hits: HitState, prim_dirs):
     return img.permute(1, 2, 0).contiguous()
 
 
-def guide_buffers(params, hits: HitState):
-    """Sample-0 primary-hit normals and albedo as [3, H, W]: the denoiser's
-    guides."""
-    p = params.height * params.width
-    return (hits.normal[:, :p].reshape(3, params.height, params.width),
-            hits.albedo[:, :p].reshape(3, params.height, params.width))
+def guide_buffers(params, hits: HitState, n_rows: int | None = None):
+    """Sample-0 primary-hit normals and albedo as [3, rows, W] (rows =
+    n_rows, else the frame's height): the denoiser's guides."""
+    rows = params.height if n_rows is None else int(n_rows)
+    p = rows * params.width
+    return (hits.normal[:, :p].reshape(3, rows, params.width),
+            hits.albedo[:, :p].reshape(3, rows, params.width))
 
 
-def render_gt_frame(mesh, env, params, accum, return_guides: bool = False):
+def render_gt_frame(mesh, env, params, accum, return_guides: bool = False,
+                    row0: int = 0, n_rows: int | None = None):
     """One accumulation batch of ground-truth path tracing. Returns
     (image_u8 [H, W, 3], new_accum [3, H*W])[, (guide_normals,
     guide_albedo)]. sample_offset must advance by samples_per_pixel between
-    calls."""
-    pixel_idx, sample_of, _, origins, dirs = primary_rays(params)
+    calls. row0 / n_rows render the stripe of rows [row0, row0 + n_rows)
+    with global pixel ids; accum [3, n_rows*W] and the outputs cover that
+    stripe."""
+    pixel_idx, sample_of, _, origins, dirs = primary_rays(params, row0,
+                                                          n_rows)
     hits = trace_primary_gt(mesh, params, origins, dirs)
     path = init_path_state(params, env, hits, dirs)
 
@@ -306,7 +316,7 @@ def render_gt_frame(mesh, env, params, accum, return_guides: bool = False):
         incoming, cur_hits = rays.direction, bounce_hits
     img, new_accum = finalize(params, path.radiance, accum)
     if return_guides:
-        return img, new_accum, guide_buffers(params, hits)
+        return img, new_accum, guide_buffers(params, hits, n_rows)
     return img, new_accum
 
 

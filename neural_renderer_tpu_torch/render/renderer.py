@@ -13,8 +13,16 @@ buffers and the image is `bilateral_denoise` of the running accumulation.
 The environment is the scene's map (or the procedural sky) with the
 renderer's rotation and strength, or the direct colour on camera misses.
 PyTorch runs eagerly, so `render_accumulate` is a plain loop over batches
-with a synchronisation and a progress call after each chunk. The tiled
-multi-device paths are not ported yet.
+with a synchronisation and a progress call after each chunk.
+
+With `set_device_mesh` (one Renderer per rank, parallel/launch.py) a
+path-traced frame renders this rank's stripe of pixel rows, keeps the
+stripe of the accumulation and gathers only the u8 image
+(parallel/shardings.py); a denoised frame runs the tiled denoiser. A
+frame falls back to the whole frame on every rank when it is a Lambert
+view, when the height does not split into the mesh's stripes, or when a
+denoised stripe would be shorter than the stencil's radius: each reason is
+warned once on stderr and counted in memory_stats()["tiled_fallback_frames"].
 
 One difference from the JAX Renderer: a change of samples_per_pixel keeps
 the accumulated samples (the image divides by the total count, so batches
@@ -37,7 +45,7 @@ import torch
 
 from ..config import NeuralNetworkConfig
 from ..models import convert, nbvh
-from ..ops.denoise import bilateral_denoise
+from ..ops.denoise import DENOISE_RADIUS, bilateral_denoise
 from ..scene.scene import Scene
 from .neural_frame import render_neural_frame, render_neural_lambert
 from .neural_march import NeuralContext
@@ -112,6 +120,10 @@ class Renderer:
         self._weights_version = 0
         self.last_frame_seconds = 0.0
         self.last_frame_rays = 0
+        self.device_mesh = None
+        self.mesh_axis = "dp"
+        self._tiled_fallback_frames = 0
+        self._tiled_fallback_warned = set()
 
     # -- setter API ------------------------------------------------------
     def resize(self, width: int, height: int):
@@ -163,6 +175,39 @@ class Renderer:
     def set_denoise(self, v: bool):
         """Denoise path-traced frames with the joint bilateral filter."""
         self.denoise = bool(v)
+
+    def set_device_mesh(self, mesh, axis: str = "dp"):
+        """Render path-traced frames in pixel stripes over the `axis` ranks
+        of `mesh` (parallel.make_mesh; every rank calls render alike); None
+        goes back to the whole frame."""
+        self.device_mesh = mesh
+        self.mesh_axis = axis
+
+    def _use_tiled(self) -> bool:
+        """Whether this frame runs in stripes; a fallback reason is warned
+        once and counted."""
+        if self.device_mesh is None:
+            return False
+        n = self.device_mesh[self.mesh_axis].size()
+        if n <= 1:
+            return False
+        reason = None
+        if self.lambert_view:
+            reason = "the Lambert view renders the whole frame"
+        elif self.height % n:
+            reason = f"height {self.height} not divisible by dp={n}"
+        elif self.denoise and self.height // n < DENOISE_RADIUS:
+            reason = ("denoised stripes need at least the stencil radius "
+                      f"({DENOISE_RADIUS}) rows")
+        if reason is None:
+            return True
+        self._tiled_fallback_frames += 1
+        if reason not in self._tiled_fallback_warned:
+            self._tiled_fallback_warned.add(reason)
+            print("neural_renderer_tpu_torch: device mesh set but the frame "
+                  f"falls back to the whole frame: {reason}",
+                  file=sys.stderr)
+        return False
 
     def reset_samples(self):
         self._accum = None
@@ -281,8 +326,8 @@ class Renderer:
 
     def _frame_fn(self):
         """(frame, lambert) of the active branch:
-        `frame(env, params, accum, return_guides) -> (img, accum[,
-        guides])` and `lambert(env, params) -> img`."""
+        `frame(env, params, accum, return_guides, row0, n_rows) -> (img,
+        accum[, guides])` and `lambert(env, params) -> img`."""
         if self.use_neural_query:
             if self.scene.outer_shell.num_triangles == 0:
                 raise RuntimeError("neural query without an outer shell mesh")
@@ -295,19 +340,43 @@ class Renderer:
             use_add = (self.use_additional_mesh
                        and self.scene.additional_mesh.num_triangles > 0)
             add = self._mesh_tensors("additional_mesh") if use_add else None
-            return (lambda env, params, accum, return_guides=False:
-                    render_neural_frame(ctx, env, params, accum,
-                                        use_additional=use_add,
-                                        additional_mesh=add,
-                                        return_guides=return_guides),
-                    lambda env, params: render_neural_lambert(
-                        ctx, env, params, use_additional=use_add,
-                        additional_mesh=add))
-        mesh = self._mesh_tensors(self._classic_name())
-        return (lambda env, params, accum, return_guides=False:
-                render_gt_frame(mesh, env, params, accum,
-                                return_guides=return_guides),
-                lambda env, params: render_gt_lambert(mesh, env, params))
+
+            def frame(env, params, accum, return_guides=False, row0=0,
+                      n_rows=None):
+                return render_neural_frame(
+                    ctx, env, params, accum, use_additional=use_add,
+                    additional_mesh=add, return_guides=return_guides,
+                    row0=row0, n_rows=n_rows)
+
+            def lambert(env, params):
+                return render_neural_lambert(ctx, env, params,
+                                             use_additional=use_add,
+                                             additional_mesh=add)
+        else:
+            classic = self._mesh_tensors(self._classic_name())
+
+            def frame(env, params, accum, return_guides=False, row0=0,
+                      n_rows=None):
+                return render_gt_frame(classic, env, params, accum,
+                                       return_guides=return_guides,
+                                       row0=row0, n_rows=n_rows)
+
+            def lambert(env, params):
+                return render_gt_lambert(classic, env, params)
+        return frame, lambert
+
+    def _rows(self, tiled: bool) -> tuple[int, int]:
+        """(row0, rows) this process renders: its stripe, or every row."""
+        if not tiled:
+            return 0, self.height
+        from ..parallel.shardings import stripe_rows
+        return stripe_rows(self.device_mesh, self.height, self.mesh_axis)
+
+    def _gather_rows(self, img):
+        """The whole u8 image from every rank's stripe of rows."""
+        from ..parallel.shardings import all_gather_cat
+        return all_gather_cat(img, self.device_mesh.get_group(self.mesh_axis),
+                              0)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -325,26 +394,39 @@ class Renderer:
             self.reset_samples()
         self._last_state = key
 
+        tiled = self._use_tiled()
+        # In stripes the accumulation is this rank's rows.
+        row0, rows = self._rows(tiled)
+        if self._accum is None or self._accum.shape[-1] != self.width * rows:
+            self.reset_samples()
+            self._accum = torch.zeros((3, self.width * rows),
+                                      dtype=torch.float32, device=self.device)
         params = self._build_params(cam_pos, self._accum_sample_count)
         env = self._env_tensors()
-        if self._accum is None:
-            self._accum = torch.zeros((3, self.width * self.height),
-                                      dtype=torch.float32, device=self.device)
         t0 = time.perf_counter()
         frame, lambert = self._frame_fn()
         if self.lambert_view:
             img = lambert(env, params)
             self._accum_sample_count = 0
         elif self.denoise:
-            img, self._accum, self._guides = frame(env, params, self._accum,
-                                                   return_guides=True)
+            _, self._accum, self._guides = frame(env, params, self._accum,
+                                                 True, row0, rows)
             self._accum_sample_count += self.samples_per_pixel
-            img = bilateral_denoise(
-                self._accum.reshape(3, self.height, self.width),
-                self._accum_sample_count, *self._guides)
+            accum = self._accum.reshape(3, rows, self.width)
+            if tiled:
+                from ..parallel import bilateral_denoise_tiled
+                img = bilateral_denoise_tiled(
+                    accum, self._accum_sample_count, *self._guides,
+                    self.device_mesh, self.mesh_axis)
+            else:
+                img = bilateral_denoise(accum, self._accum_sample_count,
+                                        *self._guides)
         else:
-            img, self._accum = frame(env, params, self._accum)
+            img, self._accum = frame(env, params, self._accum, False, row0,
+                                     rows)
             self._accum_sample_count += self.samples_per_pixel
+            if tiled:
+                img = self._gather_rows(img)
         img = img.cpu().numpy()
         self.last_frame_seconds = time.perf_counter() - t0
         self.last_frame_rays = self.width * self.height * \
@@ -378,7 +460,11 @@ class Renderer:
         self._last_state = None
 
         env = self._env_tensors()
-        accum = torch.zeros((3, self.width * self.height),
+        # In stripes each rank accumulates its rows; only the final u8
+        # image is gathered.
+        tiled = self._use_tiled()
+        row0, rows = self._rows(tiled)
+        accum = torch.zeros((3, self.width * rows),
                             dtype=torch.float32, device=self.device)
         frame, _ = self._frame_fn()
         n_total = total_samples // batch_spp
@@ -390,12 +476,15 @@ class Renderer:
             # the RNG streams it seeds.
             params = self._build_params(cam_pos,
                                         (i * batch_spp) & 0xFFFFFFFF)
-            _, accum = frame(env, params, accum)
+            _, accum = frame(env, params, accum, row0=row0, n_rows=rows)
             if progress is not None and ((i + 1) % chunk_batches == 0
                                          or i + 1 == n_total):
                 self._sync()
                 progress(i + 1, n_total)
-        img = accum_image(params, accum, total_samples).cpu().numpy()
+        img = accum_image(params, accum, total_samples)
+        if tiled:
+            img = self._gather_rows(img)
+        img = img.cpu().numpy()
         self._sync()
         self.last_frame_seconds = time.perf_counter() - t0
         self.last_frame_rays = self.width * self.height * total_samples
@@ -428,8 +517,13 @@ class Renderer:
             bvh_total += bvh
         stats["mesh_bytes"] = mesh_total
         stats["bvh_bytes"] = bvh_total
-        # Frames that fell back from a multi-device path: none is ported.
-        stats["tiled_fallback_frames"] = 0
+        stats["tiled_fallback_frames"] = self._tiled_fallback_frames
+        if self.device_mesh is not None:
+            import torch.distributed as dist
+            from ..parallel.launch import ranks_per_gpu
+            world = dist.get_world_size()
+            stats["backend"] = dist.get_backend()
+            stats["ranks_per_gpu"] = ranks_per_gpu(world, self.device)
         return stats
 
     @property

@@ -59,22 +59,46 @@ def sample_rays(generator: torch.Generator, rays: int, radius: float,
 def sample_segment_batch(generator: torch.Generator, gt_mesh, outer, inner,
                          outer_min, outer_inv_extent, batch_size: int,
                          radius: float, segments_per_ray: int = 1,
-                         global_row=None, sweep: bool = True) -> SegmentBatch:
+                         global_row=None, sweep: bool = True,
+                         shard: tuple[int, int] | None = None
+                         ) -> SegmentBatch:
     """One batch of supervised shell segments: ceil(batch_size /
     segments_per_ray) rays from `sample_rays`, marched by
-    `segment_batch_from_rays`. outer_min / outer_inv_extent: [3] f32."""
+    `segment_batch_from_rays`. outer_min / outer_inv_extent: [3] f32.
+
+    shard=(index, count): the rows of rank `index` of `count`
+    data-parallel ranks. Every rank draws the whole batch's rays from the
+    same generator state, sorts them once, and marches only its contiguous
+    share of the sorted rays; the last segment row block is cut where the
+    whole batch cuts it, so the ranks' rows together are the whole batch's
+    rows."""
     s = max(1, int(segments_per_ray))
-    o, d = sample_rays(generator, -(-batch_size // s), radius, outer_min,
-                       outer_inv_extent)
-    return segment_batch_from_rays(o, d, gt_mesh, outer, inner, outer_min,
-                                   outer_inv_extent, batch_size, s,
-                                   global_row=global_row, sweep=sweep)
+    rays = -(-batch_size // s)
+    o, d = sample_rays(generator, rays, radius, outer_min, outer_inv_extent)
+    if shard is None:
+        return segment_batch_from_rays(o, d, gt_mesh, outer, inner,
+                                       outer_min, outer_inv_extent,
+                                       batch_size, s, global_row=global_row,
+                                       sweep=sweep)
+    index, count = shard
+    order = traversal._ray_sort_order(o, d, None)
+    a, b = rays * index // count, rays * (index + 1) // count
+    # The whole batch keeps the last block's rows of its first
+    # batch_size - (s - 1) * rays rays.
+    last = min(max(batch_size - (s - 1) * rays - a, 0), b - a)
+    idx = order[a:b]
+    return segment_batch_from_rays(o[:, idx], d[:, idx], gt_mesh, outer,
+                                   inner, outer_min, outer_inv_extent,
+                                   (s - 1) * (b - a) + last, s,
+                                   global_row=global_row, sweep=sweep,
+                                   presorted=True)
 
 
 def segment_batch_from_rays(o, d, gt_mesh, outer, inner, outer_min,
                             outer_inv_extent, batch_size: int,
                             segments_per_ray: int = 1, global_row=None,
-                            sweep: bool = True) -> SegmentBatch:
+                            sweep: bool = True,
+                            presorted: bool = False) -> SegmentBatch:
     """March [3, R] rays through up to `segments_per_ray` shell segments
     and emit every segment as a training row; rows of exhausted rays are
     invalid. Returns batch_size rows (the segments concatenated row block by
@@ -85,13 +109,15 @@ def segment_batch_from_rays(o, d, gt_mesh, outer, inner, outer_min,
     alternate, so from the shifted entry the first backward outer crossing
     is the exit and the first forward one the re-entry); the first sweep
     runs from the origin with the second forward crossing. sweep=False keeps
-    the literal traces (the oracle)."""
+    the literal traces (the oracle). presorted: the rays are already in
+    `_ray_sort_order` (a data-parallel rank's share of a sorted batch)."""
     s = max(1, int(segments_per_ray))
     dev = o.device
     # One octant/morton sort for the whole batch (row order does not matter
     # to the loss): every ground-truth trace then skips its own sort.
-    order = traversal._ray_sort_order(o, d, None)
-    o, d = o[:, order], d[:, order]
+    if not presorted:
+        order = traversal._ray_sort_order(o, d, None)
+        o, d = o[:, order], d[:, order]
     rays = o.shape[1]
 
     if global_row is None:

@@ -25,13 +25,25 @@ def bce_with_logits(logits, targets):
         torch.exp(-torch.abs(logits)))
 
 
-def shell_losses(outputs, batch, weights: LossWeights = LossWeights()):
+def loss_counts(batch):
+    """(valid segments, present segments) of a batch, f32 sums: the
+    denominators of shell_losses."""
+    valid = batch.valid.to(torch.float32)
+    return valid.sum(), (valid * batch.presence).sum()
+
+
+def shell_losses(outputs, batch, weights: LossWeights = LossWeights(),
+                 counts=None):
     """outputs: [>=8, B] channel-major network output; batch: SegmentBatch.
-    Returns (total, dict of components)."""
+    Returns (total, dict of components). `counts` replaces the batch's own
+    loss_counts: a data-parallel rank passes the whole batch's, summed
+    over the ranks, so the ranks' partial losses add up to the loss of the
+    whole batch (as GSPMD's global sums do in the JAX package)."""
     valid = batch.valid.to(torch.float32)
     pos = valid * batch.presence
-    n_valid = torch.clamp(valid.sum(), min=1.0)
-    n_pos = torch.clamp(pos.sum(), min=1.0)
+    n_valid, n_pos = loss_counts(batch) if counts is None else counts
+    n_valid = torch.clamp(n_valid, min=1.0)
+    n_pos = torch.clamp(n_pos, min=1.0)
 
     presence_loss = (bce_with_logits(outputs[0], batch.presence)
                      * valid).sum() / n_valid

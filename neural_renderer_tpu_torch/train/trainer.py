@@ -15,7 +15,15 @@ learning rate of step t taken before the step count advances), and the
 cosine schedule is optax.cosine_decay_schedule's. Checkpoints are this
 package's own: the weights `.npz` of models/convert.py plus a file with the
 Adam moments and the step; `export_reference_blob` writes a tcnn-layout
-network as the reference's flat FP16 blob. The dp/tp mesh is not ported.
+network as the reference's flat FP16 blob. The JAX package's orbax
+checkpoints resume through the same two files, which
+scripts/export_lane_ckpt_npz.py writes from them (optax's mu, nu and count
+are AdamW's exp_avg, exp_avg_sq and step).
+
+With a (dp, tp) mesh (parallel/shardings.py) the state holds this rank's
+shards (`shard_train_state`) and a step runs on this rank's rows of the
+batch: the loss divides by the counts of the whole batch, and the
+gradients are reduced over the ranks before each rank updates its shard.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 
 from ..models import convert, nbvh
 from .dataset import sample_segment_batch
-from .losses import shell_losses
+from .losses import loss_counts, shell_losses
 
 
 @dataclass
@@ -138,26 +146,55 @@ def resolve_fused(cfg: TrainConfig, net_config: nbvh.NbvhConfig,
     return True
 
 
-def loss_fn(net: nbvh.ShellNetwork, batch, fused: bool = True):
-    """(total, components) of `shell_losses` on the network's outputs."""
+def loss_fn(net: nbvh.ShellNetwork, batch, fused: bool = True,
+            counts=None):
+    """(total, components) of `shell_losses` on the network's outputs;
+    `counts` as shell_losses takes them."""
     if fused:
         from ..ops.lane_grid_train_kernel import apply_train
         outputs = apply_train(net, batch.inputs)
     else:
         outputs = nbvh.mlp_forward(list(net.mlp),
                                    nbvh.encode_inputs(net, batch.inputs))
-    return shell_losses(outputs, batch)
+    return shell_losses(outputs, batch, counts=counts)
 
 
-def make_train_step_on_batch(cfg: TrainConfig, net_config: nbvh.NbvhConfig,
-                             device="cuda"):
-    """(state, batch) -> (state, metrics): gradient and AdamW update on a
-    batch supplied by the caller; `state` is updated in place. Metrics are
-    device scalars (reading them synchronises)."""
+# The batch axis of a meshed step: rows split over every rank.
+BATCH_AXES = ("dp", "tp")
+
+
+def _sharded_grad_step(state: TrainState, batch, fused: bool):
+    """Gradient and update of a sharded state on this rank's rows: the
+    whole network gathered for the forward and backward, the loss over the
+    whole batch's counts, the gradients reduced into the shards; the
+    metrics summed over the ranks are the whole batch's losses."""
+    from ..parallel.shardings import all_reduce_sum
+    sharded = state.net
+    full = sharded.gather()
+    counts = all_reduce_sum(torch.stack(loss_counts(batch)))
+    total, metrics = loss_fn(full, batch, fused, counts=(counts[0],
+                                                          counts[1]))
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    sharded.reduce_grads(full)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    names = list(metrics)
+    summed = all_reduce_sum(torch.stack([metrics[k].detach()
+                                         for k in names]))
+    return state, dict(zip(names, summed))
+
+
+def _local_grad_step(cfg: TrainConfig, net_config: nbvh.NbvhConfig, device,
+                     sharded: bool):
+    """(state, batch of this rank's rows) -> (state, metrics)."""
     if cfg.compute_dtype != "bfloat16":
         raise ValueError("the port trains with bf16 MLP operands only "
                          f"(compute_dtype '{cfg.compute_dtype}')")
     fused = resolve_fused(cfg, net_config, device)
+    if sharded:
+        return lambda state, batch: _sharded_grad_step(state, batch, fused)
 
     def step(state: TrainState, batch):
         state.optimizer.zero_grad(set_to_none=True)
@@ -171,21 +208,43 @@ def make_train_step_on_batch(cfg: TrainConfig, net_config: nbvh.NbvhConfig,
     return step
 
 
+def make_train_step_on_batch(cfg: TrainConfig, net_config: nbvh.NbvhConfig,
+                             device="cuda", mesh=None):
+    """(state, batch) -> (state, metrics): gradient and AdamW update on a
+    batch supplied by the caller; `state` is updated in place. Metrics are
+    device scalars (reading them synchronises). With a mesh, `state` comes
+    from parallel.shard_train_state and every rank passes the whole batch,
+    of which it takes its rows (constrain_batch_dp)."""
+    step = _local_grad_step(cfg, net_config, device, mesh is not None)
+    if mesh is None:
+        return step
+    from ..parallel.shardings import constrain_batch_dp
+    return lambda state, batch: step(
+        state, constrain_batch_dp(batch, mesh, BATCH_AXES))
+
+
 def make_train_step(cfg: TrainConfig, net_config: nbvh.NbvhConfig, gt_mesh,
                     outer, inner, outer_min, outer_inv_extent, radius: float,
-                    global_row=None, device="cuda"):
+                    global_row=None, device="cuda", mesh=None):
     """(state, generator) -> (state, metrics) in two stages: sample a fresh
     segment batch on the device from the torch.Generator, then the gradient
     and update of make_train_step_on_batch. global_row: the scene's
-    global-material row (scene_global_row)."""
-    grad_step = make_train_step_on_batch(cfg, net_config, device)
+    global-material row (scene_global_row). With a mesh every rank draws
+    the same rays from its generator (seeded alike) and marches only its
+    share of them (sample_segment_batch's `shard`)."""
+    grad_step = _local_grad_step(cfg, net_config, device, mesh is not None)
+    shard = None
+    if mesh is not None:
+        from ..parallel.shardings import axis_coords
+        shard = axis_coords(mesh, BATCH_AXES)
 
     def step(state: TrainState, generator: torch.Generator):
         with torch.no_grad():
             batch = sample_segment_batch(
                 generator, gt_mesh, outer, inner, outer_min,
                 outer_inv_extent, cfg.batch_size, radius,
-                segments_per_ray=cfg.segments_per_ray, global_row=global_row)
+                segments_per_ray=cfg.segments_per_ray, global_row=global_row,
+                shard=shard)
         return grad_step(state, batch)
 
     return step
@@ -207,19 +266,35 @@ def checkpoint_files(ckpt_dir: str, step: int):
     return weights, weights[:-len(".npz")] + ".adam.npz"
 
 
+def _moments(state: TrainState, key: str) -> list:
+    """The optimizer's `key` moment of each parameter (zeros before the
+    first step), whole tensors also for a sharded state."""
+    params = list(state.net.parameters())
+    out = [state.optimizer.state.get(p, {}).get(key) for p in params]
+    out = [torch.zeros_like(p.detach()) if m is None else m.detach()
+           for p, m in zip(params, out)]
+    if hasattr(state.net, "gather_tensors"):
+        out = state.net.gather_tensors(out)
+    return out
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
-    """Write the weights and the Adam state; returns the weights path."""
+    """Write the weights and the Adam state; returns the weights path. A
+    sharded state is gathered on every rank (call it on all of them) and
+    written by rank 0."""
+    import torch.distributed as dist
     weights, adam = checkpoint_files(ckpt_dir, state.step)
+    net = state.net.gather() if hasattr(state.net, "gather") else state.net
+    moments = {key: _moments(state, key) for key in ("exp_avg",
+                                                     "exp_avg_sq")}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return weights
     os.makedirs(os.path.dirname(weights), exist_ok=True)
-    convert.save_params_npz(weights, state.net)
+    convert.save_params_npz(weights, net)
     arrays = {"step": np.int64(state.step)}
-    for name, p in zip(convert.param_names(state.net),
-                       state.net.parameters()):
-        st = state.optimizer.state.get(p, {})
-        for key in ("exp_avg", "exp_avg_sq"):
-            arrays[f"{key}_{name}"] = (
-                st[key].detach().cpu().numpy() if key in st
-                else np.zeros(tuple(p.shape), np.float32))
+    for i, name in enumerate(convert.param_names(net)):
+        for key, ms in moments.items():
+            arrays[f"{key}_{name}"] = ms[i].cpu().numpy()
     with open(adam, "wb") as f:
         np.savez(f, **arrays)
     return weights
@@ -229,16 +304,18 @@ def restore_checkpoint(path: str, cfg: TrainConfig,
                        net_config: nbvh.NbvhConfig,
                        device="cuda") -> TrainState:
     """A TrainState from save_checkpoint's files: `path` is the weights
-    `.npz` or `<name>_ckpt/step_<N>`. Orbax checkpoints of the JAX package
-    are refused: their weights can be exported, their optimizer state not."""
+    `.npz` or `<name>_ckpt/step_<N>`. An orbax checkpoint of the JAX
+    package resumes through the two files scripts/export_lane_ckpt_npz.py
+    writes from it; the directory itself is refused (this package does not
+    read orbax)."""
     from ..render.renderer import npz_for_checkpoint
     if os.path.isdir(path):
         raise ValueError(
             f"'{path}' is a directory (an orbax checkpoint of the JAX "
-            "package?): this package reads its own checkpoints only. Export "
-            "the weights with python scripts/export_lane_ckpt_npz.py "
-            f"{path} <out.npz> to render them; resuming needs a checkpoint "
-            "written by this trainer")
+            "package?); this package does not read orbax. Export it with "
+            f"python scripts/export_lane_ckpt_npz.py {path} <out.npz> "
+            "<config.json>, which writes the weights <out.npz> and the "
+            "optimizer state <out>.adam.npz, then resume from <out.npz>")
     weights = npz_for_checkpoint(path)
     adam = weights[:-len(".npz")] + ".adam.npz"
     if not os.path.exists(adam):

@@ -990,3 +990,80 @@ def test_ablation_mxu_bf16_kernel_matches_twin(cuda, passes):
     twin = trace_ablation.trace_mxu_bf16_twin(o, d, tris, passes)
     _hold(ker[0], twin[0], _TWIN_BOUNDS, ker[1].view(torch.int32),
           twin[1].view(torch.int32))
+
+
+def _stripe_scene(dev, w=128, h=96):
+    outer_h = outward_sphere(24, 48, 1.2)
+    omin, omax = outer_h.bounds()
+    net = nbvh.init_params(nbvh.NbvhConfig(lane_sublanes=4),
+                           torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        net.lane.mul_(1e3)
+    ctx = NeuralContext(outer_h.to_tensors(dev),
+                        outward_sphere(24, 48, 0.8).to_tensors(dev), net)
+    params = RenderParams.make(
+        w, h, 1, 2, [0, 0, 3.0], [0, 0, -1.0], [1, 0, 0.0], [0, 1, 0.0],
+        0.9, Material(roughness=0.6, specular=0.3), scene_scale=2.0,
+        outer_shell_min=omin, outer_shell_inv_extent=1.0 / (omax - omin),
+        device=dev)
+    gt = outward_sphere(16, 32, 1.0).to_tensors(dev)
+    return ctx, gt, EnvironmentTensors.from_numpy(None, device=dev), params
+
+
+def test_stripes_equal_whole_frame_on_card(cuda):
+    """Four stripes of the 128x96 neural and ground-truth frames
+    (`row0` / `n_rows`, global pixel ids) stitch to the whole frame bit for
+    bit on the card: image, accumulation and guides (every kernel is
+    per-ray, so a ray's result does not depend on its batch)."""
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    ctx, gt, env, params = _stripe_scene(cuda)
+    w, h, rows = 128, 96, 24
+    frames = {"neural": lambda acc, **kw: neural_frame.render_neural_frame(
+                  ctx, env, params, acc, return_guides=True, **kw),
+              "gt": lambda acc, **kw: pt.render_gt_frame(
+                  gt, env, params, acc, return_guides=True, **kw)}
+    for name, fn in frames.items():
+        img, acc, guides = fn(torch.zeros((3, w * h), device=cuda))
+        parts = [fn(torch.zeros((3, w * rows), device=cuda), row0=r0,
+                    n_rows=rows) for r0 in range(0, h, rows)]
+        assert torch.equal(torch.cat([p[0] for p in parts]), img), name
+        assert torch.equal(torch.cat([p[1].reshape(3, rows, w)
+                                      for p in parts], dim=1),
+                           acc.reshape(3, h, w)), name
+        for k in (0, 1):
+            assert torch.equal(torch.cat([p[2][k] for p in parts], dim=1),
+                               guides[k]), name
+
+
+def test_nccl_world_of_one_tiled_frame(cuda, tmp_path):
+    """A world-size-1 NCCL group through the tiled functions gives the plain
+    frames, the plain denoised image and compute_psnr's PSNR."""
+    import torch.distributed as dist
+    from neural_renderer_tpu_torch import parallel as par
+    from neural_renderer_tpu_torch.metrics import compute_psnr
+    from neural_renderer_tpu_torch.ops.denoise import bilateral_denoise
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh(dp=1)
+        ctx, gt, env, params = _stripe_scene(cuda)
+        acc0 = torch.zeros((3, 128 * 96), device=cuda)
+        n_img, n_acc, n_g = neural_frame.render_neural_frame(
+            ctx, env, params, acc0, return_guides=True)
+        t_img, t_acc, t_g = par.render_neural_frame_tiled(
+            ctx, env, params, acc0, mesh, return_guides=True)
+        assert torch.equal(t_img, n_img) and torch.equal(t_acc, n_acc)
+        g_img, _ = pt.render_gt_frame(gt, env, params, acc0)
+        tg_img, _ = par.render_gt_frame_tiled(gt, env, params, acc0, mesh)
+        assert torch.equal(tg_img, g_img)
+        acc = n_acc.reshape(3, 96, 128)
+        assert torch.equal(par.bilateral_denoise_tiled(acc, 1, *t_g, mesh),
+                           bilateral_denoise(acc, 1, *n_g))
+        psnr = float(par.psnr_tiled(g_img, n_img, mesh))
+        want = compute_psnr(g_img.cpu().numpy(), n_img.cpu().numpy())
+        assert abs(psnr - want) <= 1e-12 * want
+    finally:
+        dist.destroy_process_group()

@@ -178,9 +178,9 @@ def test_import_without_jax():
     orbax and optax made unimportable (sys.modules[name] = None), every
     module of the package included (train, cli.train, ops.fused_network,
     ops.trace_mxu, the environment and EXR modules, ops.denoise,
-    render.profiler, cli.viewer and cli.input_controller among them); then,
-    still without them, it loads the studio scene (the PIZ EXR sky, the
-    glTF torus and its PNG textures)."""
+    render.profiler, cli.viewer, cli.input_controller and parallel among
+    them); then, still without them, it loads the studio scene (the PIZ
+    EXR sky, the glTF torus and its PNG textures)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'neural_renderer_tpu', 'imageio', 'matplotlib',"
@@ -193,7 +193,8 @@ def test_import_without_jax():
         "'ops.fused_network', 'ops.trace_mxu', 'scene.envmap', 'scene.exr', "
         "'scene.exr_piz', 'scene.exr_b44', 'scene.exr_write', "
         "'ops.denoise', 'render.profiler', 'cli.viewer', "
-        "'cli.input_controller')}"
+        "'cli.input_controller', 'parallel', 'parallel.shardings', "
+        "'parallel.launch', 'parallel.dryrun')}"
         " <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -11,7 +11,8 @@ Within the port: render_accumulate's image does not depend on
 chunk_batches and `progress` fires once per chunk; `evaluate --host-loop`
 writes the chunked path's images; an uneven sample count renders, equal
 to the same samples in batches of one; `--profile` prints one table per
-pass; `--dp 2` is refused by name.
+pass; `--dp 0` is refused by name (`--dp 2` runs in
+tests/test_torch_parallel_render.py).
 """
 
 import os
@@ -235,5 +236,5 @@ def test_evaluate_profile_and_dp(tmp_path, capsys):
     assert "primaryTrace" in tables[0] and "bounceTrace" in tables[0]
     assert "shellTrace" in tables[1] and "neuralForward" in tables[1]
     assert "avg neural calls/ray" in out
-    assert _evaluate(cfg, tmp_path / "dp", "--dp", "2") == 1
+    assert _evaluate(cfg, tmp_path / "dp", "--dp", "0") == 1
     assert "multi-GPU" in capsys.readouterr().err

@@ -373,8 +373,9 @@ def test_train_cli_cpu(tmp_path, capsys):
     """train.main on the CPU: the checkpoint loads in the Renderer (through
     the config's checkpoint_path) with equal tensors, --resume continues
     the step count, a tcnn config trains and exports its flat FP16 blob
-    (`--out`), which loads in the Renderer, and --dp and an orbax directory
-    are refused by name."""
+    (`--out`), which loads in the Renderer, and --dp 0 and an orbax
+    directory are refused by name (the latter naming its export; --dp/--tp
+    run in tests/test_torch_parallel_train.py)."""
     cfg = _tiny_config(tmp_path)
     ckpt = str(tmp_path / "tiny_ckpt")
     common = [cfg, "--batch-size", "192", "--segments-per-ray", "3",
@@ -402,8 +403,8 @@ def test_train_cli_cpu(tmp_path, capsys):
         and "step 1/3" not in out
     assert os.path.exists(tmp_path / "tiny_step3.adam.npz")
 
-    assert train_cli.main([cfg, "--dp", "2", "--device", "cpu"]) == 1
-    assert "--dp/--tp" in capsys.readouterr().err
+    assert train_cli.main([cfg, "--dp", "0", "--device", "cpu"]) == 1
+    assert "--dp and --tp" in capsys.readouterr().err
     tcnn_cfg = _tiny_config(tmp_path, "tcnn")
     blob = str(tmp_path / "tiny_tcnn.bin")
     assert train_cli.main([tcnn_cfg, "--steps", "1", "--batch-size", "64",

@@ -168,7 +168,7 @@ def test_viewer_train_while_render(tmp_path, capsys):
 
 def test_viewer_warm_start_and_refusals(tmp_path, capsys):
     """With weights loaded the trainer fine-tunes them; an orbax directory
-    as --train-resume, --dp 2 and (without a card) the default device end
+    as --train-resume, --dp 0 and (without a card) the default device end
     with rc 1 and a message; so does the interactive mode without a GUI
     backend or without matplotlib."""
     cfg = tiny_config(tmp_path)
@@ -182,7 +182,7 @@ def test_viewer_warm_start_and_refusals(tmp_path, capsys):
                         "--train-resume", orbax, "--device", "cpu",
                         "--output", str(tmp_path / "v")]) == 1
     assert "orbax" in capsys.readouterr().err
-    assert viewer.main([cfg, "--headless", "1", "--dp", "2"]) == 1
+    assert viewer.main([cfg, "--headless", "1", "--dp", "0"]) == 1
     assert "multi-GPU" in capsys.readouterr().err
     if not torch.cuda.is_available():
         assert viewer.main([cfg, "--headless", "1"]) == 1
