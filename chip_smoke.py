@@ -248,7 +248,18 @@ its training. Phases, each failing the run:
      `train --resume configs/knot/lane_step48000.npz` (the export of the
      JAX package's orbax checkpoint) for 10 steps, without orbax: every
      loss under phase 10's 0.03 bound for the trained weights and the
-     first under a tenth of a fresh start's (phase 10's first loss).
+     first under a tenth of a fresh start's (phase 10's first loss);
+ 26. the networks the port trained from scratch on the card
+     (scripts/ablate_studio_torch.py, scripts/ablate_knot_torch.py,
+     `cli/train.py`; PERF.md has the recipes): (a) `evaluate` at 480x270 x
+     64 on each committed file through `--ckpt`, held to its scene's gate
+     (TRAINED_GATES) and logged beside the JAX-trained weights' scores of
+     phases 7, 13 and 22 (the lane sphere's port-trained network is not
+     shipped: it missed its gate, ROADMAP Queue 3); (b) the studio recipe
+     cut to 500 steps at its full width (65,536 segments x 3, cosine over
+     the 500 steps) through `cli/train.py`, counters at 0 first: K4, K3,
+     K2 and K6 must launch, and the last loss must fall under
+     STUDIO500_LOSS; its Msegments/s logged.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -1720,7 +1731,7 @@ def main() -> int:
 
     # ---- 22. the studio scene ---------------------------------------------
     t22 = time.perf_counter()
-    studio_phase(kernels, smi)
+    studio22 = studio_phase(kernels, smi)
     log(f"[phase 22] {time.perf_counter() - t22:.1f} s")
 
     # ---- 23. every scene and image format ---------------------------------
@@ -1738,6 +1749,12 @@ def main() -> int:
     parallel_phase(smi, knot7_dir, knot7_text, fresh_loss=fresh10,
                    trained_loss=trained10)
     log(f"[phase 25] {time.perf_counter() - t25:.1f} s")
+
+    # ---- 26. the networks the port trained -------------------------------
+    t26 = time.perf_counter()
+    trained_phase(smi, {"knot": knot7, "sphere": (psnr13, flip13),
+                        "studio": (studio22["psnr"], studio22["flip"])})
+    log(f"[phase 26] {time.perf_counter() - t26:.1f} s")
 
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
@@ -2039,12 +2056,93 @@ def studio_phase(kernels, smi, dev="cuda"):
         k: v["launches"] for k, v in studio.items()})
     kernels["K2"]["studio"] = dict(march_iteration_1=case2,
                                    launches=gate["launches"])
+    return gate
 
 
 
 KNOT_GATE = dict(psnr=40.2, flip=0.018)      # phase 7's gate
+
+# Phase 26: each committed network the port trained from scratch, its
+# config, the evaluate flags of the phase that gates the JAX-trained
+# weights, and that gate.
+TRAINED_GATES = {
+    "studio": ("configs/studio/studio_lane.json",
+               "configs/studio/torch_lane_step12000.npz",
+               ["--no-additional"], STUDIO_GATE),
+    "sphere": ("configs/sphere/sphere.json",
+               "configs/sphere/torch_weights.bin", [],
+               dict(psnr=45.5, flip=0.018)),                # phase 13
+    "knot": ("configs/knot/knot_lane.json",
+             "configs/knot/torch_lane_step48000.npz", [], KNOT_GATE),
+}
+# The studio recipe cut to 500 steps, on an NVIDIA H100 80GB HBM3 at 700 W:
+# sound runs ended at 0.1727-0.1751 (five runs, seeds 0 and 1); a run
+# that learned nothing after its step 200 would end near the sound runs'
+# step-200 loss, 0.2143-0.2149. Planted faults (measurements, not in the
+# code): the learning rate / 10 ended at 0.8194, the K2/K6 operand cache
+# frozen after step 133 at 0.3285.
+STUDIO500_LOSS = 0.19
 FORMATS_STUDIO_SKIES = (("jpeg", "studio_sky_baseline.jpg"),
                         ("dwab", "dwab_reference.exr"))
+
+
+def trained_phase(smi, jax_scores, dev="cuda", size=(480, 270),
+                  total_samples=None, steps=500, batch=65536):
+    """Phase 26: the port-trained networks' gates, then the cut studio
+    recipe through cli/train.py with its launches counted."""
+    from neural_renderer_tpu_torch.cli import evaluate
+    from neural_renderer_tpu_torch.cli import train as train_cli
+    from neural_renderer_tpu_torch.ops import (lane_grid_kernel,
+                                               lane_grid_train_kernel,
+                                               trace_pallas)
+    w, h = size
+    extra = ["--total-samples", str(total_samples)] if total_samples else []
+    for scene, (cfg, weights, flags, gate) in TRAINED_GATES.items():
+        t0 = time.perf_counter()
+        text = run_evaluate(evaluate, [
+            os.path.join(ROOT, cfg), "--width", str(w), "--height", str(h),
+            *flags, *extra, "--ckpt", os.path.join(ROOT, weights),
+            "--device", dev, "--output", os.path.join(
+                ROOT, "comparison_output", f"smoke_trained_{scene}")])
+        psnr, flip = parse_metrics(text)
+        jp, jf = jax_scores[scene]
+        log(f"[evaluate {scene} {w}x{h}, port-trained {weights}] PSNR "
+            f"{psnr!r} dB, FLIP {flip!r} (JAX-trained weights {jp!r} dB, "
+            f"{jf!r}; gate >= {gate['psnr']} dB, <= {gate['flip']}) "
+            f"{time.perf_counter() - t0:.1f} s ({smi})")
+        if not (psnr >= gate["psnr"] and flip <= gate["flip"]):
+            raise AssertionError(f"the port-trained {weights} misses its "
+                                 f"gate {gate}")
+
+    counters = {"K2": lane_grid_kernel.forward_lane,
+                "K3": trace_pallas.trace_dense,
+                "K4": trace_pallas.sweep_shells_dense,
+                "K6": lane_grid_train_kernel.backward_lane}
+    for f in counters.values():
+        f.launches = 0
+    ckpt_dir = os.path.join(ROOT, "comparison_output", "smoke_trained",
+                            "studio500_ckpt")
+    t0 = time.perf_counter()
+    text = run_cli(train_cli.main, [
+        os.path.join(ROOT, TRAINED_GATES["studio"][0]), "--steps",
+        str(steps), "--batch-size", str(batch), "--segments-per-ray", "3",
+        "--lr-schedule", "cosine", "--log-every", str(max(1, steps // 10)),
+        "--device", dev, "--ckpt-dir", ckpt_dir])
+    wall = time.perf_counter() - t0
+    n = {k: f.launches for k, f in counters.items()}
+    lines = re.findall(rf"step (\d+)/{steps} loss=([0-9.]+).*\(([0-9.]+) "
+                       r"Msegments/s\)", text)
+    loss, rate = float(lines[-1][1]), lines[-1][2]
+    log(f"[train studio {steps} x {batch} x 3, cosine] {wall:.1f} s, last "
+        f"loss {loss!r} (bound {STUDIO500_LOSS}), {rate} Msegments/s as "
+        f"printed, launches {n} ({smi})")
+    for key, count in n.items():
+        if count <= 0:
+            raise AssertionError(f"{key} was never launched by the studio "
+                                 "training run")
+    if not (int(lines[-1][0]) == steps and loss < STUDIO500_LOSS):
+        raise AssertionError(f"the cut studio run ended at loss {loss}, "
+                             f"not under {STUDIO500_LOSS}")
 
 
 def exr_chunks(path):
