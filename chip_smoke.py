@@ -137,7 +137,10 @@ its training. Phases, each failing the run:
      against K3, `recip` and `sweep_recip` too; nodiv and recipx within
      ABLATE_ULPS; bf16 within ABLATE_BF16; current (K3), sweep (K4),
      mxu_hi (K8) and sweep_mxu (K4-MXU) bit-exact to their twins, the last
-     two within phase 17's bounds of K3 and K4); time each twin;
+     two within phase 17's bounds of K3 and K4); time each twin; log, for
+     the kernels behind a prefilter (mxu_hi3, mxu_lo, the sweep variants),
+     the bound on the pairs the rule leaves, the bound on every pair and
+     the share the rule leaves;
  21. run `evaluate` on the shipped lane sphere (configs/sphere/
      sphere_lane.json) at 480x270 x 64 and hold it to 1 dB under the JAX
      record (PSNR >= 50.54 dB, mean FLIP <= 0.018); then run bench_torch.py
@@ -1785,6 +1788,12 @@ def main() -> int:
             # one the block rule's, the TPU kernel's walk.
             out[-1]["block_rule_bound_ms"] = max(
                 k.pop("block_ops_seconds"), t_bytes) * 1e3
+        if "pair_ops_seconds" in k:
+            # K9's prefiltered kernels: bound_ms counts the pairs their rule
+            # leaves; this one every pair, and the share the rule leaves.
+            out[-1]["per_pair_bound_ms"] = max(
+                k.pop("pair_ops_seconds"), t_bytes) * 1e3
+            out[-1]["survivors"] = k["survivors"]
         if "studio" in k:
             # K2, K3, K4 at the studio scene's launch shapes (phase 22).
             out[-1]["studio"] = k["studio"]
@@ -2709,6 +2718,18 @@ def ablation_phase(kernels, launches):
             replaces=replaces, max_abs_err=err, ms=res["ms"], plain_ms=pms,
             ops_seconds=res["bound_ms"] * 1e-3, bytes=nbytes_,
             library_ms=None)
+        if "pair_bound_ms" in res:
+            # The prefiltered kernels (mxu_hi3, mxu_lo, the sweep variants):
+            # bound_ms counts what the rule leaves, this bound every pair.
+            slots = (" (every pair of each slot where it leaves one)"
+                     if label in ta.MXU_BF16_PASSES else "")
+            log(f"[bound K9 {label}] on the pairs its prefilter leaves "
+                f"{res['bound_ms']:.4f} ms, on every pair "
+                f"{res['pair_bound_ms']:.4f} ms; the rule leaves "
+                f"{res['survivors']!r} of the pairs{slots}")
+            kernels[f"K9 {label}"].update(
+                pair_ops_seconds=res["pair_bound_ms"] * 1e-3,
+                survivors=res["survivors"])
 
     k3 = traces["current"]["out"]
     n = o.shape[1]

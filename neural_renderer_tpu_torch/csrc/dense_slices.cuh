@@ -45,14 +45,16 @@ __device__ __forceinline__ int nr_slice_chunk(int s, int nchunks,
 // The slices' partial rows [slices][kRows][npad] -> out [kRows, npad]:
 // kRows 2 the closest hit (t, id bitcast), 4 or 5 the sweep's rows
 // outer_fwd, outer_bwd, inner_fwd, inner_bwd[, outer_fwd2]. Rays of a
-// dead skip block get the miss (id 0).
+// dead skip block get the miss (id 0); without skip flags (block_mask
+// null) every ray is live.
 template <int kRows>
 __global__ void __launch_bounds__(256)
 nr_dense_fold(const float* __restrict__ part, int npad, int slices,
               const int* __restrict__ block_mask, float* __restrict__ out) {
   const long long r = (long long)blockIdx.x * 256 + threadIdx.x;
   if (r >= npad) return;
-  const bool live = block_mask[r / NR_SKIP_RAYS] != 0;
+  const bool live =
+      block_mask == nullptr || block_mask[r / NR_SKIP_RAYS] != 0;
   if constexpr (kRows == 2) {
     float bt = NR_MISS;
     int bi = 0;

@@ -1,7 +1,10 @@
 // The FP32 walk of the dense kernels K3 (trace_dense.cu) and K4
 // (sweep_dense.cu): every ray against every triangle, in FP32
 // Möller–Trumbore behind a prefilter. Their launch shape and the fold of
-// triangle slices are dense_slices.cuh's.
+// triangle slices are dense_slices.cuh's. The walk and K4's sweep are
+// templates over the tile math (DfMt below), so that the trace-kernel
+// ablation's sweep variants (ablate_sweep.cu) run the same walk with their
+// own pair math and prefilter rules.
 //
 // A CTA of DF_THREADS threads takes DF_RAYS rays of one 512-ray skip block
 // (the flag is read at ray0 / 512, so it keeps its meaning), DF_R rays a
@@ -98,10 +101,16 @@ struct DfPair {
   float det, lo, hi, tx, ty, tz;
 };
 
-// The rule's test of one numerator (u·det or v·det): true where it rejects
-// the pair. FORWARD_ONLY keeps only det > 0 and BACKWARD_ONLY det < 0, so
-// there w is num and -num.
-template <int kMode>
+// num sgn(det): num with its sign flipped where det's sign bit is set.
+__device__ __forceinline__ float df_signed(float num, float det) {
+  return __int_as_float(__float_as_int(num) ^
+                        (__float_as_int(det) & 0x80000000));
+}
+
+// The rule's test of one numerator (u·det or v·det): true where rule R
+// rejects the pair. FORWARD_ONLY keeps only det > 0 and BACKWARD_ONLY
+// det < 0, so there w is num and -num.
+template <int kMode, class R>
 __device__ __forceinline__ bool df_out(float num, const DfPair& p) {
   float w;
   if constexpr (kMode == 1) {
@@ -109,14 +118,13 @@ __device__ __forceinline__ bool df_out(float num, const DfPair& p) {
   } else if constexpr (kMode == 2) {
     w = -num;
   } else {
-    w = __int_as_float(__float_as_int(num) ^
-                       (__float_as_int(p.det) & 0x80000000));
+    w = df_signed(num, p.det);
   }
-  return (w < p.lo) | (w >= p.hi);
+  return R::out(w, p);
 }
 
 // The rule's second test: v·det in nr_mt_t's order.
-template <int kMode>
+template <int kMode, class R>
 __device__ __forceinline__ bool df_keep_v(const DfRays& r, int i,
                                           const float4& a, const float4& b,
                                           const DfPair& p) {
@@ -124,7 +132,7 @@ __device__ __forceinline__ bool df_keep_v(const DfRays& r, int i,
   const float qy = p.tz * a.w - p.tx * b.y;
   const float qz = p.tx * b.x - p.ty * a.w;
   const float vn = r.dx[i] * qx + r.dy[i] * qy + r.dz[i] * qz;
-  return !df_out<kMode>(vn, p);
+  return !df_out<kMode, R>(vn, p);
 }
 
 // det of ray i and the triangle (a, b, c) = (v0x v0y v0z e1x | e1y e1z e2x
@@ -147,9 +155,9 @@ __device__ __forceinline__ bool df_face(const DfPair& p) {
   return true;
 }
 
-// The rule's u test: u·det in nr_mt_t's order from d x e2 and the rule's
+// The rule's u test: u·det in nr_mt_t's order from d x e2 and rule R's
 // bounds. Writes the pair's state for the v test.
-template <int kMode>
+template <int kMode, class R>
 __device__ __forceinline__ bool df_keep_u(const DfRays& r, int i,
                                           const float4& a, const float3& pv,
                                           DfPair& p) {
@@ -157,9 +165,8 @@ __device__ __forceinline__ bool df_keep_u(const DfRays& r, int i,
   p.ty = r.oy[i] - a.y;
   p.tz = r.oz[i] - a.z;
   const float un = p.tx * pv.x + p.ty * pv.y + p.tz * pv.z;
-  p.lo = fabsf(p.det) * DF_LO;
-  p.hi = fabsf(p.det) * DF_HI;
-  return !df_out<kMode>(un, p);
+  R::bounds(p);
+  return !df_out<kMode, R>(un, p);
 }
 
 // Start the copies of chunk c of the [9, total] triangle rows into `dst`.
@@ -187,12 +194,12 @@ __device__ __forceinline__ bool df_staged_e1(const float* tile) {
   return live;
 }
 
-// One triangle (a, b, c) against the thread's rays: the prefilter and,
-// where some lane's pair may pass, nr_mt_t on the lane's kept pairs into
-// fold(i, id, t, det). The v test runs ray by ray, only where some lane
-// of the warp keeps that ray's pair: on incoherent rays a warp's u test
-// passes for one of its rays far more often than for a given one.
-template <int kMode, class Fold>
+// One triangle (a, b, c) against the thread's rays: rule R's prefilter
+// and, where some lane's pair may pass, R::pair on the lane's kept pairs
+// into fold(i, id, t, det). The v test runs ray by ray, only where some
+// lane of the warp keeps that ray's pair: on incoherent rays a warp's u
+// test passes for one of its rays far more often than for a given one.
+template <int kMode, class R, class Fold>
 __device__ __forceinline__ void df_triangle(const DfRays& r, const float4& a,
                                             const float4& b, const float4& c,
                                             int id, Fold&& fold) {
@@ -211,7 +218,7 @@ __device__ __forceinline__ void df_triangle(const DfRays& r, const float4& a,
   any = false;
 #pragma unroll
   for (int i = 0; i < DF_R; ++i) {
-    keep[i] = keep[i] & df_keep_u<kMode>(r, i, a, pv[i], p[i]);
+    keep[i] = keep[i] & df_keep_u<kMode, R>(r, i, a, pv[i], p[i]);
     any |= keep[i];
   }
   if (!__any_sync(0xffffffffu, any)) return;
@@ -219,7 +226,7 @@ __device__ __forceinline__ void df_triangle(const DfRays& r, const float4& a,
 #pragma unroll
   for (int i = 0; i < DF_R; ++i) {
     if (__any_sync(0xffffffffu, keep[i]))
-      keep[i] = keep[i] & df_keep_v<kMode>(r, i, a, b, p[i]);
+      keep[i] = keep[i] & df_keep_v<kMode, R>(r, i, a, b, p[i]);
     any |= keep[i];
   }
   if (!__any_sync(0xffffffffu, any)) return;
@@ -227,24 +234,75 @@ __device__ __forceinline__ void df_triangle(const DfRays& r, const float4& a,
   for (int i = 0; i < DF_R; ++i) {
     if (keep[i]) {
       float det;
-      const float t = nr_mt_t(r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i],
-                              r.dz[i], a.x, a.y, a.z, a.w, b.x, b.y, b.z,
-                              b.w, c.x, &det);
+      const float t = R::pair(r, i, a, b, c, &det);
       fold(i, id, t, det);
     }
   }
 }
 
+// The walk's tile math M (df_walk's template argument): K3's and K4's is
+// DfMt, nr_mt_t behind the rule above; the trace-kernel ablation's sweep
+// variants bring their own (csrc/ablate_sweep.cu). M gives the walk
+//   Rays, rays(DfRays)  what a thread keeps of its DF_R rays;
+//   prepare(tile)       run by each thread on the chunk elements it staged
+//                       (df_stage's), once they have landed and before the
+//                       chunk's barrier;
+//   triangle<kMode>(rays, a, b, c, id, fold)  one triangle against them.
+// A scalar math R (DfScalar<R>) runs df_triangle with its rule and pair:
+//   bounds(p)           the rule's bounds on a numerator, from p.det;
+//   out(w, p)           true where w = num sgn(det) rejects the pair;
+//   pair(r, i, a, b, c, &det)  t (a miss value above 1e30 where the pair
+//                       is rejected) and det.
+template <class R>
+struct DfScalar {
+  using Rays = DfRays;
+  __device__ __forceinline__ static DfRays rays(const DfRays& r) {
+    return r;
+  }
+  __device__ __forceinline__ static void prepare(float*) {}
+  template <int kMode, class Fold>
+  __device__ __forceinline__ static void triangle(const DfRays& r,
+                                                  const float4& a,
+                                                  const float4& b,
+                                                  const float4& c, int id,
+                                                  Fold&& fold) {
+    df_triangle<kMode, R>(r, a, b, c, id, fold);
+  }
+};
+
+// Möller–Trumbore with 1/det by nr_rcp<kRcp> behind the rule above: K3's
+// and K4's (NR_RCP_DIV) and the ablation's `recip` (NR_RCP_RN, the same
+// values).
+template <int kRcp>
+struct DfMtRcp : DfScalar<DfMtRcp<kRcp>> {
+  __device__ __forceinline__ static void bounds(DfPair& p) {
+    p.lo = fabsf(p.det) * DF_LO;
+    p.hi = fabsf(p.det) * DF_HI;
+  }
+  __device__ __forceinline__ static bool out(float w, const DfPair& p) {
+    return (w < p.lo) | (w >= p.hi);
+  }
+  __device__ __forceinline__ static float pair(const DfRays& r, int i,
+                                               const float4& a,
+                                               const float4& b,
+                                               const float4& c, float* det) {
+    return nr_mt_t<kRcp>(r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i],
+                         r.dz[i], a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                         c.x, det);
+  }
+};
+using DfMt = DfMtRcp<NR_RCP_DIV>;
+
 // Walk chunks [c0, c1) of the triangles: stage chunk c + 1 into the other
-// half of `buf` while chunk c is swept; for each triangle the prefilter on
-// each of the thread's rays and, where some lane's pair may pass, nr_mt_t
-// on the lane's kept pairs into fold(i, triangle id, t, det). A thread
+// half of `buf` while chunk c is swept; for each triangle M's prefilter on
+// each of the thread's rays and, where some lane's pair may pass, M's pair
+// math on the lane's kept pairs into fold(i, triangle id, t, det). A thread
 // visits its triangles in increasing id.
-template <int kMode, class Fold>
+template <int kMode, class M = DfMt, class Fold>
 __device__ __forceinline__ void df_walk(const float* __restrict__ tris,
                                         int ttot, int c0, int c1,
-                                        const DfRays& r, float* buf,
-                                        Fold&& fold) {
+                                        const typename M::Rays& r,
+                                        float* buf, Fold&& fold) {
   constexpr int kBuf = DF_CHUNK * DF_TRI_STRIDE;
   if (c0 < c1) {
     df_stage(buf, tris, ttot, c0);
@@ -259,15 +317,117 @@ __device__ __forceinline__ void df_walk(const float* __restrict__ tris,
     } else {
       nr_cp_async_wait<0>();
     }
-    const float* cur = buf + ((c - c0) & 1) * kBuf;
+    float* cur = buf + ((c - c0) & 1) * kBuf;
+    const bool live = df_staged_e1(cur);
+    M::prepare(cur);
     // Chunk c has landed for every thread; skip it if it is padding.
-    if (!__syncthreads_or(df_staged_e1(cur))) continue;
+    if (!__syncthreads_or(live)) continue;
     const float4* tile = reinterpret_cast<const float4*>(cur);
     const int base = c * DF_CHUNK;
 #pragma unroll 2
     for (int j = 0; j < DF_CHUNK; ++j)
-      df_triangle<kMode>(r, tile[3 * j], tile[3 * j + 1], tile[3 * j + 2],
-                         base + j, fold);
+      M::template triangle<kMode>(r, tile[3 * j], tile[3 * j + 1],
+                                  tile[3 * j + 2], base + j, fold);
     __syncthreads();  // chunk c consumed before chunk c + 2 lands on it
   }
+}
+
+// ---- The dense dual-shell sweep over tile math M: K4 (sweep_dense.cu, M =
+// DfMt) and the ablation's sweep variants (ablate_sweep.cu).
+//
+// tris = [outer | inner], each shell padded to whole 256-triangle tiles with
+// zero triangles that the det cull rejects, so a DF_CHUNK chunk never
+// straddles the two shells. Per ray the rows outer_fwd, outer_bwd,
+// inner_fwd, inner_bwd[, outer_fwd2]: outer pairs fold into the strict
+// forward pair (m1f, m2f) and the backward min, inner pairs into the two
+// mins; forward is det > 0, backward det < 0 (facing = -det). Rays of a
+// 512-ray block whose skip flag is 0 get 1e30 in every row. Each thread
+// folds its DF_R rays' pairs that the prefilter leaves, and with more than
+// one triangle slice nr_dense_fold merges the slices' partial rows per ray.
+// The strict pair and the mins are selections over the multiset of t's, so
+// no grouping changes them, and a rejected pair's t (1e30, or a variant's
+// miss value above it) changes no accumulator. The kernel keeps K4's name,
+// which the profiler filters of scripts/compare_trace_cluster_kernels.py
+// match.
+template <bool kFwd2, class M>
+__global__ void __launch_bounds__(DF_THREADS)
+sweep_dense_kernel(const float* __restrict__ o,
+                   const float* __restrict__ d, int npad,
+                   const float* __restrict__ tris, int ttot, int outer_cols,
+                   const int* __restrict__ block_mask, int slices,
+                   float* __restrict__ out) {
+  constexpr int kRows = kFwd2 ? 5 : 4;
+  __shared__ __align__(16) float buf[2 * DF_CHUNK * DF_TRI_STRIDE];
+  const long long ray0 = (long long)blockIdx.x * DF_RAYS;
+  const int s = blockIdx.y;
+  if (block_mask[ray0 / NR_SKIP_RAYS] == 0) {  // uniform across the CTA
+    if (slices == 1) {
+#pragma unroll
+      for (int i = 0; i < DF_R; ++i) {
+        for (int row = 0; row < kRows; ++row)
+          out[(long long)row * npad + df_ray(ray0, i)] = NR_MISS;
+      }
+    }
+    return;  // with slices the fold writes the miss
+  }
+  DfRays r;
+  df_load(o, d, npad, ray0, r);
+  float m1f[DF_R], m2f[DF_R], m1b[DF_R], i1f[DF_R], i1b[DF_R];
+#pragma unroll
+  for (int i = 0; i < DF_R; ++i)
+    m1f[i] = m2f[i] = m1b[i] = i1f[i] = i1b[i] = NR_MISS;
+  const int nchunks = ttot / DF_CHUNK;
+  df_walk<0, M>(tris, ttot, nr_slice_chunk(s, nchunks, slices),
+                nr_slice_chunk(s + 1, nchunks, slices), M::rays(r), buf,
+                [&](int i, int id, float t, float det) {
+                  if (id < outer_cols) {  // uniform across the chunk
+                    nr_sweep_outer(kFwd2, t, det, m1f[i], m2f[i], m1b[i]);
+                  } else {
+                    nr_sweep_inner(t, det, i1f[i], i1b[i]);
+                  }
+                });
+  float* dst = out + (long long)s * kRows * npad;  // a slice's partial rows
+#pragma unroll
+  for (int i = 0; i < DF_R; ++i) {
+    const long long q = df_ray(ray0, i);
+    dst[q] = m1f[i];
+    dst[npad + q] = m1b[i];
+    dst[2LL * npad + q] = i1f[i];
+    dst[3LL * npad + q] = i1b[i];
+    if (kFwd2) dst[4LL * npad + q] = m2f[i];
+  }
+}
+
+// The sweep's launch shape (nr_dense_slices); the walk needs no scratch
+// beyond the partial rows.
+static inline int df_sweep_shape(int npad, int ttot, int* slices,
+                                 long long* scratch_doubles) {
+  *scratch_doubles = 0;
+  return nr_dense_slices(npad, ttot, DF_RAYS, DF_CHUNK, DF_CTAS_PER_SM,
+                         slices);
+}
+
+// Launch the sweep over tile math M and, with slices, its fold. part:
+// [slices][5 or 4][npad] f32 scratch (unused with one slice). T and
+// outer_cols must be multiples of DF_CHUNK.
+template <class M>
+int df_sweep_launch(const float* o, const float* d, int npad,
+                    const float* tris, int ttot, int outer_cols,
+                    const int* block_mask, int with_fwd2, int slices,
+                    float* part, float* out, cudaStream_t stream) {
+  if (ttot % DF_CHUNK != 0 || outer_cols % DF_CHUNK != 0 || slices < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (npad / DF_RAYS == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(npad / DF_RAYS, slices);
+  float* dst = slices == 1 ? out : part;
+  if (with_fwd2) {
+    sweep_dense_kernel<true, M><<<grid, DF_THREADS, 0, stream>>>(
+        o, d, npad, tris, ttot, outer_cols, block_mask, slices, dst);
+    nr_dense_fold_launch<5>(part, npad, slices, block_mask, out, stream);
+  } else {
+    sweep_dense_kernel<false, M><<<grid, DF_THREADS, 0, stream>>>(
+        o, d, npad, tris, ttot, outer_cols, block_mask, slices, dst);
+    nr_dense_fold_launch<4>(part, npad, slices, block_mask, out, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 // Tile-math variants of Möller–Trumbore for the trace-kernel ablation
 // (ops/trace_ablation.py; scripts/ablate_trace_kernel.py::_mt_tile :47-97
 // and _probe_tile :100 of the reference). Each variant is a struct the
-// templated trace and sweep loops take (csrc/ablate_trace.cu,
-// csrc/sweep_dense.cuh):
+// templated trace loop takes (csrc/ablate_trace.cu; the sweep variants,
+// csrc/ablate_sweep.cu, take their pair math from here too):
 //
 //   RayState         what a thread keeps of its ray;
 //   ray(NrRay)       builds it once per ray;
@@ -122,13 +122,14 @@ NR_BF16X2_OP(nr_badd, "add")
 NR_BF16X2_OP(nr_bsub, "sub")
 #undef NR_BF16X2_OP
 
-// bf16: every operand, constant and intermediate in bf16, two triangles
-// per step on packed __nv_bfloat162 (low half column q, high half q+1).
-// Products of bf16 values are exact in f32 and a sum of two rounds once,
-// so each packed operation (round to nearest even) equals PyTorch's and
-// XLA's bf16 arithmetic (computed in f32, rounded to bf16). 1/det is an
-// IEEE f32 divide rounded once to bf16, as theirs; comparisons run on the
-// exact f32 widenings.
+// bf16: every operand, constant and intermediate in bf16, on packed
+// __nv_bfloat162: here two triangles per step (low half column q, high half
+// q+1); the sweep variant (csrc/ablate_sweep.cu) packs two rays against one
+// triangle, in the same operations. Products of bf16 values are exact in f32
+// and a sum of two rounds once, so each packed operation (round to nearest
+// even) equals PyTorch's and XLA's bf16 arithmetic (computed in f32,
+// rounded to bf16). 1/det is an IEEE f32 divide rounded once to bf16, as
+// theirs; comparisons run on the exact f32 widenings.
 struct MtBf16 {
   struct RayState {
     __nv_bfloat162 ox, oy, oz, dx, dy, dz;
@@ -140,44 +141,53 @@ struct MtBf16 {
             __float2bfloat162_rn(r.oz), __float2bfloat162_rn(r.dx),
             __float2bfloat162_rn(r.dy), __float2bfloat162_rn(r.dz)};
   }
-  template <int W>
-  __device__ __forceinline__ static void pair2(const RayState& r,
-                                               const float (*tile)[W], int q,
-                                               float t[2], float det_out[2]) {
-    __nv_bfloat162 v[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k)
-      v[k] = __floats2bfloat162_rn(tile[k][q], tile[k][q + 1]);
-    const __nv_bfloat162 v0x = v[0], v0y = v[1], v0z = v[2];
-    const __nv_bfloat162 e1x = v[3], e1y = v[4], e1z = v[5];
-    const __nv_bfloat162 e2x = v[6], e2y = v[7], e2z = v[8];
-    const __nv_bfloat162 px =
-        nr_bsub(nr_bmul(r.dy, e2z), nr_bmul(r.dz, e2y));
-    const __nv_bfloat162 py =
-        nr_bsub(nr_bmul(r.dz, e2x), nr_bmul(r.dx, e2z));
-    const __nv_bfloat162 pz =
-        nr_bsub(nr_bmul(r.dx, e2y), nr_bmul(r.dy, e2x));
-    const __nv_bfloat162 det = nr_badd(
-        nr_badd(nr_bmul(e1x, px), nr_bmul(e1y, py)), nr_bmul(e1z, pz));
-    const __nv_bfloat162 tx = nr_bsub(r.ox, v0x);
-    const __nv_bfloat162 ty = nr_bsub(r.oy, v0y);
-    const __nv_bfloat162 tz = nr_bsub(r.oz, v0z);
-    const __nv_bfloat162 u_num = nr_badd(
-        nr_badd(nr_bmul(tx, px), nr_bmul(ty, py)), nr_bmul(tz, pz));
-    const __nv_bfloat162 qx = nr_bsub(nr_bmul(ty, e1z), nr_bmul(tz, e1y));
-    const __nv_bfloat162 qy = nr_bsub(nr_bmul(tz, e1x), nr_bmul(tx, e1z));
-    const __nv_bfloat162 qz = nr_bsub(nr_bmul(tx, e1y), nr_bmul(ty, e1x));
-    const __nv_bfloat162 v_num = nr_badd(
-        nr_badd(nr_bmul(r.dx, qx), nr_bmul(r.dy, qy)), nr_bmul(r.dz, qz));
-    const __nv_bfloat162 t_num = nr_badd(
-        nr_badd(nr_bmul(e2x, qx), nr_bmul(e2y, qy)), nr_bmul(e2z, qz));
+  // d x e2 and det, o - v0 and u·det of the triangle v = (v0, e1, e2), in
+  // _mt_tile's order.
+  __device__ __forceinline__ static void det_u(const RayState& r,
+                                               const __nv_bfloat162 v[9],
+                                               __nv_bfloat162 p[3],
+                                               __nv_bfloat162 tv[3],
+                                               __nv_bfloat162& det,
+                                               __nv_bfloat162& u_num) {
+    p[0] = nr_bsub(nr_bmul(r.dy, v[8]), nr_bmul(r.dz, v[7]));
+    p[1] = nr_bsub(nr_bmul(r.dz, v[6]), nr_bmul(r.dx, v[8]));
+    p[2] = nr_bsub(nr_bmul(r.dx, v[7]), nr_bmul(r.dy, v[6]));
+    det = nr_badd(nr_badd(nr_bmul(v[3], p[0]), nr_bmul(v[4], p[1])),
+                  nr_bmul(v[5], p[2]));
+    tv[0] = nr_bsub(r.ox, v[0]);
+    tv[1] = nr_bsub(r.oy, v[1]);
+    tv[2] = nr_bsub(r.oz, v[2]);
+    u_num = nr_badd(nr_badd(nr_bmul(tv[0], p[0]), nr_bmul(tv[1], p[1])),
+                    nr_bmul(tv[2], p[2]));
+  }
+  // q = (o - v0) x e1 and v·det.
+  __device__ __forceinline__ static void v_num(const RayState& r,
+                                               const __nv_bfloat162 v[9],
+                                               const __nv_bfloat162 tv[3],
+                                               __nv_bfloat162 q[3],
+                                               __nv_bfloat162& vn) {
+    q[0] = nr_bsub(nr_bmul(tv[1], v[5]), nr_bmul(tv[2], v[4]));
+    q[1] = nr_bsub(nr_bmul(tv[2], v[3]), nr_bmul(tv[0], v[5]));
+    q[2] = nr_bsub(nr_bmul(tv[0], v[4]), nr_bmul(tv[1], v[3]));
+    vn = nr_badd(nr_badd(nr_bmul(r.dx, q[0]), nr_bmul(r.dy, q[1])),
+                 nr_bmul(r.dz, q[2]));
+  }
+  // The rest of both halves: t·det, 1/det, u, v, u + v, t and the culls;
+  // t (kMiss where the pair is rejected) and det widened to f32.
+  __device__ __forceinline__ static void finish(
+      const __nv_bfloat162 v[9], const __nv_bfloat162 q[3],
+      __nv_bfloat162 det, __nv_bfloat162 u_num, __nv_bfloat162 vn,
+      float t[2], float det_out[2]) {
+    const __nv_bfloat162 t_num =
+        nr_badd(nr_badd(nr_bmul(v[6], q[0]), nr_bmul(v[7], q[1])),
+                nr_bmul(v[8], q[2]));
     const float det0 = __low2float(det), det1 = __high2float(det);
     const bool ok0 = fabsf(det0) >= NR_BF16_EPS;
     const bool ok1 = fabsf(det1) >= NR_BF16_EPS;
     const __nv_bfloat162 inv = __floats2bfloat162_rn(
         1.0f / (ok0 ? det0 : 1.0f), 1.0f / (ok1 ? det1 : 1.0f));
     const __nv_bfloat162 u = nr_bmul(u_num, inv);
-    const __nv_bfloat162 vv = nr_bmul(v_num, inv);
+    const __nv_bfloat162 vv = nr_bmul(vn, inv);
     const __nv_bfloat162 upv = nr_badd(u, vv);
     const __nv_bfloat162 tt = nr_bmul(t_num, inv);
     const float uf[2] = {__low2float(u), __high2float(u)};
@@ -194,6 +204,18 @@ struct MtBf16 {
                       (tf[i] > NR_BF16_EPS) && (tf[i] > NR_BF16_MIN_T);
       t[i] = ok ? tf[i] : NR_BF16_MISS;
     }
+  }
+  template <int W>
+  __device__ __forceinline__ static void pair2(const RayState& r,
+                                               const float (*tile)[W], int q,
+                                               float t[2], float det_out[2]) {
+    __nv_bfloat162 v[9], p[3], tv[3], qv[3], det, u_num, vn;
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      v[k] = __floats2bfloat162_rn(tile[k][q], tile[k][q + 1]);
+    det_u(r, v, p, tv, det, u_num);
+    v_num(r, v, tv, qv, vn);
+    finish(v, qv, det, u_num, vn, t, det_out);
   }
 };
 

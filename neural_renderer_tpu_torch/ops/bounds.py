@@ -39,6 +39,14 @@ zero, and so do loads. The counts per (ray, triangle) pair:
   `bf16` (mt_variants.cuh::MtBf16): `local`'s 45 without the divide, in
   packed bf16 at two per lane per clock, plus the f32 divide and its two
   conversions (det to f32, 1/det to bf16) at the FP32 rate.
+  The ablation's sweep variants run K4's walk, each behind its own rule
+  (csrc/ablate_sweep.cu; trace_ablation.variant_rule); their filtered
+  bound counts each test as DENSE_* do (PREFILTER_OPS): `recip` and
+  `recipx` as `local`; `nodiv` 14, 8 (its rule compares w with 0 and
+  |det|: no bound multiply), 14 and 47 - 36 = 11; `bf16` in packed bf16
+  14, 8, 14 and 9, and at the FP32 rate the u test's 2 bound multiplies
+  and the widenings of det and u·det, the v test's widening of v·det, and
+  the rest's divide and 1/det's narrowing (BF16_PREFILTER_FP32).
   The matrix form's epilogue (mt_mxu.cuh::nr_mxu_epilogue): 1/det 1, u, v,
   t 3, u + v 1 = 5; with FP64 products (K8, K1/K4/K5-MXU) the four
   FP64-to-FP32 conversions of det, u·det, v·det and t·det come before it,
@@ -49,7 +57,11 @@ zero, and so do loads. The counts per (ray, triangle) pair:
   prefilter leaves (trace_mxu.epilogue_pairs for the dense kernels,
   trace_cluster.epilogue_pairs for the pairs a clustered walk sweeps),
   whether or not the kernel prefilters (K1-MXU and K5-MXU convert every
-  pair). The bf16-product kernels accumulate in f32 and convert nothing.
+  pair). The bf16-product kernels accumulate in f32 and convert nothing;
+  their prefilter (csrc/ablate_mxu_bf16.cu::bm_maybe) takes a multiply and
+  two fused multiply-adds per pair (MXU_BF16_PREFILTER), and their bound
+  counts the epilogue on the pairs of the slots it leaves
+  (trace_ablation.mxu_bf16_epilogue_pairs).
   The matrix form's products: the function's 19 multiply-adds per pair
   (det 3, u 6, v 6, t 4), 38 flops as the tensor rates count them, on FP64
   tensor cores or, per bf16 pass, on bf16 ones.
@@ -89,10 +101,21 @@ MXU_FLOPS = 38                   # the matrix form's products, per pair
 MXU_EPILOGUE = 5                 # its FP32 epilogue, per pair
 MXU_CONVERSIONS = 4              # FP64-to-FP32 conversions, per pair
 MXU_PREFILTER = 3                # the dense kernels' prefilter, per pair
+MXU_BF16_PREFILTER = 3           # the bf16-product kernels' prefilter
 DENSE_DET = 14                   # the FP32 dense prefilter's det, every pair
 DENSE_U = 10                     # its u test, where the facing leaves a pair
 DENSE_V = 14                     # its v test, where the u test leaves one
 DENSE_REST = MT_OPS - 36         # the rest of Möller–Trumbore, where v does
+# The prefiltered walk's FP32 operations per pair of each tile math: det,
+# the u test, the v test, the rest (the module docstring).
+PREFILTER_OPS = {
+    "local": (DENSE_DET, DENSE_U, DENSE_V, DENSE_REST),
+    "recip": (DENSE_DET, DENSE_U, DENSE_V, DENSE_REST),
+    "recipx": (DENSE_DET, DENSE_U, DENSE_V, DENSE_REST),
+    "nodiv": (DENSE_DET, 8, DENSE_V, FP32_OPS["nodiv"] - 36),
+}
+BF16_PREFILTER_PACKED = (14, 8, 14, 9)   # `bf16`'s, in packed bf16
+BF16_PREFILTER_FP32 = (0, 4, 1, 2)       # and at the FP32 rate
 
 
 def trace_seconds(math: str, pairs: int) -> float:
@@ -109,12 +132,15 @@ def mxu_seconds(pairs: int, bf16_passes: int | None = None,
     """The least time of `pairs` pairs of the matrix form: the larger of its
     tensor products (FP64, or `bf16_passes` bf16 passes), its FP32
     operations and, with FP64 products, the conversions of the products to
-    f32, each at its own rate. With FP64 products `converted` is required:
-    the pairs whose products the function must convert and finish in the
-    epilogue (the module docstring)."""
+    f32, each at its own rate. `converted`: the pairs whose products the
+    function must finish in the epilogue (and, with FP64 products, convert;
+    the module docstring), required with FP64 products; with bf16 products
+    None counts the epilogue on every pair, without a prefilter."""
     if bf16_passes is not None:
+        fp32 = (pairs * MXU_EPILOGUE if converted is None else
+                pairs * MXU_BF16_PREFILTER + converted * MXU_EPILOGUE)
         return max(pairs * MXU_FLOPS * bf16_passes / BF16_TENSOR,
-                   pairs * MXU_EPILOGUE / FP32_RATE)
+                   fp32 / FP32_RATE)
     if converted is None:
         raise ValueError("mxu_seconds: FP64 products need `converted`")
     fp32 = pairs * MXU_PREFILTER + converted * MXU_EPILOGUE
@@ -122,15 +148,23 @@ def mxu_seconds(pairs: int, bf16_passes: int | None = None,
                converted * MXU_CONVERSIONS / CONVERSION_RATE)
 
 
-def dense_seconds(pairs: int, facing: int, left_u: int,
-                  left_v: int) -> float:
+def dense_seconds(pairs: int, facing: int, left_u: int, left_v: int,
+                  math: str = "local") -> float:
     """The least time of `pairs` pairs of the FP32 dense kernels' function
     (K3, K4): det on every pair, the u test on the `facing` pairs the
     facing test leaves, the v test on the `left_u` pairs the u test leaves,
     the rest of Möller–Trumbore on the `left_v` pairs the v test leaves
-    (the module docstring; `trace_pallas.prefilter_pairs` counts them)."""
-    return (pairs * DENSE_DET + facing * DENSE_U + left_u * DENSE_V
-            + left_v * DENSE_REST) / FP32_RATE
+    (the module docstring; `trace_pallas.prefilter_pairs` counts them).
+    `math` names the ablation's tile math whose walk it is (PREFILTER_OPS'
+    keys or "bf16")."""
+    counts = (pairs, facing, left_u, left_v)
+    if math == "bf16":
+        return (sum(n * k for n, k in zip(counts, BF16_PREFILTER_PACKED))
+                / BF16X2_RATE
+                + sum(n * k for n, k in zip(counts, BF16_PREFILTER_FP32))
+                / FP32_RATE)
+    return sum(n * k for n, k in zip(counts, PREFILTER_OPS[math])) \
+        / FP32_RATE
 
 
 def mlp_seconds(rows: int, macs: int, in_bytes: int,

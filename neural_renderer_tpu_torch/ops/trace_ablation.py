@@ -31,17 +31,20 @@ for the probe), at the rate of unfused FP32 instructions; `bf16` at the
 packed rate, two per lane per clock, but for its f32 divide.
 
 The sweep family (`run_sweep_family` :182) re-traces the dense dual-shell
-sweep K4 with its tile math replaced: `csrc/ablate_sweep.cu` instantiates
-K4's templated loop (`csrc/sweep_dense.cuh`) with `nodiv`, `recip`,
-`recipx` and `bf16`; the twin is `trace_pallas.sweep_shells_dense_twin`
-with the variant's pairs.
+sweep K4 with its tile math replaced: `csrc/ablate_sweep.cu` runs K4's walk
+(`csrc/mt_dense.cuh`) with `nodiv`, `recip`, `recipx` and `bf16`, each
+behind a prefilter rule of its own (`variant_rule`); the twin is
+`trace_pallas.sweep_shells_dense_twin` with the variant's pairs
+(`variant_pairs`; with `prefilter=True` the pairs the rule leaves, the
+kernel's walk on the CPU).
 
 `mxu_hi3` and `mxu_lo` are K8's matrix formulation with the dots at
 `Precision.HIGH` and `DEFAULT` (:361-395). On the TPU these are bf16_3x
 (hi·hi + hi·lo + lo·hi of bf16 halves) and one bf16 pass; the kernel
-`csrc/ablate_mxu_bf16.cu` takes those bf16 products on the tensor cores.
-Its twin rounds the operands to bf16 and sums the exact products in
-float64, rounded once to f32.
+`csrc/ablate_mxu_bf16.cu` takes those bf16 products on the tensor cores,
+K8's way (features once, a sliced walk, a prefilter on its f32
+accumulators, `mxu_bf16_rule`). Its twin rounds the operands to bf16 and
+sums the exact products in float64, rounded once to f32.
 
 CPU tensors run the twins; CUDA tensors launch the kernels or raise. Each
 wrapper counts its launches per kernel in `launches`.
@@ -79,42 +82,43 @@ TRACE_COMBOS = {
 }
 SWEEP_VARIANTS = ("nodiv", "recip", "recipx", "bf16")
 MXU_BF16_PASSES = {"mxu_hi3": 3, "mxu_lo": 1}
-MXU_BF16_TILE = 128   # triangles the kernel stages per step
+MXU_BF16_TILE = 64    # triangles the kernel stages per chunk
 PROBE_CHAIN = 48      # the probe's chain of multiplies and adds, per pair
+# The bf16 matrix kernels' rule: |rn(2 num - det)| at least rn(|det| (1 +
+# 2^-19)) rejects the pair (csrc/ablate_mxu_bf16.cu argues it).
+MXU_BF16_H = 1.0 + 2.0 ** -19
+# The prefilter rules of the sweep kernels (csrc/ablate_sweep.cu; `recip`
+# takes K4's, csrc/mt_dense.cuh): a numerator w = num sgn(det) below |det|
+# lo or at least |det| hi rejects the pair. `nodiv`'s rule is its own
+# culls, w < 0 or w > |det| (no margin). Each margin is proven in the
+# kernel's source for its division.
+RULE_MARGINS = {
+    "recip": (trace_pallas.DENSE_LO, trace_pallas.DENSE_HI),
+    "recipx": (-2.0 ** -18, 1.0 + 2.0 ** -18),
+    "bf16": (-2.0 ** -20, 1.0 + 2.0 ** -4),
+}
 
 
-def _mt_variant(o, d, tb, variant: str):
-    """`_mt_tile` of scripts/ablate_trace_kernel.py: rays [3, N] x
-    triangles [9, T] -> (t, det), each [N, T], t = 1e30 (bf16's in `bf16`)
-    where the pair is rejected, in the script's operation order. `bf16`
-    computes in bf16 (each operation rounds once, a divide in f32 first);
-    `recipx`'s twin takes the exact reciprocal, as `recip`."""
-    dt = torch.bfloat16 if variant == "bf16" else torch.float32
+def _mt_numerators(o, d, tb):
+    """det, u·det, v·det and t·det of `_mt_tile` for rays o, d [3, ...]
+    against triangles tb [9, ...] (broadcasting against each other), in its
+    operation order and the operands' dtype."""
+    det, u_num, tvec = trace_pallas._mt_det_u(o, d, tb)
+    v_num, (qx, qy, qz) = trace_pallas._mt_v_num(d, tb, tvec)
+    return det, u_num, v_num, tb[6] * qx + tb[7] * qy + tb[8] * qz
+
+
+def _mt_culls(det, u_num, v_num, t_num, variant: str, inv=None):
+    """`_mt_tile`'s culls of `variant` on the numerators (their dtype:
+    bf16 for `bf16`, else f32): (t, ok), ok False where the pair is
+    rejected. `inv` replaces 1/det (exact, or for `bf16` rounded from f32;
+    an approximate reciprocal such as `recipx`'s on the card)."""
+    dt = det.dtype
 
     def const(x):
-        return torch.tensor(x, dtype=dt, device=o.device)
+        return torch.tensor(x, dtype=dt, device=det.device)
 
-    one, big = const(1.0), const(MISS)
-    eps, min_t = const(TRI_EPSILON), const(MIN_T)
-    ox, oy, oz = (o[i].to(dt)[:, None] for i in range(3))
-    dx, dy, dz = (d[i].to(dt)[:, None] for i in range(3))
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        tb[i].to(dt)[None, :] for i in range(9))
-
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
-    u_num = tx * px + ty * py + tz * pz
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v_num = dx * qx + dy * qy + dz * qz
-    t_num = e2x * qx + e2y * qy + e2z * qz
-
+    one, eps, min_t = const(1.0), const(TRI_EPSILON), const(MIN_T)
     ok = torch.abs(det) >= eps
     if variant == "nodiv":
         s = torch.where(det < 0, -one, one)
@@ -127,15 +131,28 @@ def _mt_variant(o, d, tb, variant: str):
         ok &= ts > eps * ad
         t = ts / ad
         ok &= (t > eps) & (t > min_t)
-        return torch.where(ok, t, big), det
-    inv_det = 1.0 / torch.where(ok, det, one)
+        return t, ok
+    inv_det = 1.0 / torch.where(ok, det, one) if inv is None else inv
     u = u_num * inv_det
     ok &= (u >= 0.0) & (u <= 1.0)
     v = v_num * inv_det
     ok &= (v >= 0.0) & (u + v <= 1.0)
     t = t_num * inv_det
     ok &= (t > eps) & (t > min_t)
-    return torch.where(ok, t, big), det
+    return t, ok
+
+
+def _mt_variant(o, d, tb, variant: str):
+    """`_mt_tile` of scripts/ablate_trace_kernel.py: rays [3, N] x
+    triangles [9, T] -> (t, det), each [N, T], t = 1e30 (bf16's in `bf16`)
+    where the pair is rejected, in the script's operation order. `bf16`
+    computes in bf16 (each operation rounds once, a divide in f32 first);
+    `recipx`'s twin takes the exact reciprocal, as `recip`."""
+    dt = torch.bfloat16 if variant == "bf16" else torch.float32
+    det, u_num, v_num, t_num = _mt_numerators(
+        o.to(dt)[:, :, None], d.to(dt)[:, :, None], tb.to(dt)[:, None, :])
+    t, ok = _mt_culls(det, u_num, v_num, t_num, variant)
+    return torch.where(ok, t, torch.full_like(t, MISS)), det
 
 
 def _probe(o, d, tb):
@@ -149,12 +166,75 @@ def _probe(o, d, tb):
     return x
 
 
-def variant_pairs(variant: str):
+def variant_rule(variant: str, det, u_num, v_num):
+    """The prefilter rule of `variant`'s sweep kernel on the CPU
+    (csrc/ablate_sweep.cu, where each is argued) on a pair's det, u·det and
+    v·det as its pair math computes them (f32, or bf16 for `bf16`, widened
+    exactly): (facing, keep_u, keep_v) as `trace_pallas.dense_rule`'s,
+    False where the u test, then the v test leave a pair that the variant
+    certainly rejects (facing: every pair, the sweeps run ANY)."""
+    if variant not in RULE_MARGINS and variant != "nodiv":
+        raise ValueError(f"no prefilter rule for {variant!r}")
+    det, u_num, v_num = (x.float() for x in (det, u_num, v_num))
+    face = torch.ones_like(det, dtype=torch.bool)
+    a = det.abs()
+    if variant == "nodiv":
+        def out(num):
+            w = torch.where(torch.signbit(det), -num, num)
+            return (w < 0.0) | (w > a)
+    else:
+        lo_f, hi_f = RULE_MARGINS[variant]
+        lo, hi = a * lo_f, a * hi_f
+
+        def out(num):
+            return trace_pallas._dense_out(num, det, lo, hi)
+    keep_u = ~out(u_num)
+    return face, keep_u, keep_u & ~out(v_num)
+
+
+def variant_prefilter(o, d, tb, variant: str, mode: int = 0):
+    """`variant_rule` on the variant's own det, u·det and v·det of rays o,
+    d [3, ...] against triangles tb [9, ...], broadcasting as
+    `trace_pallas.dense_prefilter` (whose contract it has; ANY only)."""
+    if mode != 0:
+        raise ValueError("the sweep variants' rules are for ANY")
+    if variant == "bf16":
+        o, d, tb = (x.to(torch.bfloat16) for x in (o, d, tb))
+    det, u_num, tvec = trace_pallas._mt_det_u(o, d, tb)
+    v_num, _ = trace_pallas._mt_v_num(d, tb, tvec)
+    return variant_rule(variant, det, u_num, v_num)
+
+
+def variant_prefilter_pairs(origins, dirs, tris_packed, block_mask,
+                            variant: str) -> tuple[int, int, int]:
+    """`trace_pallas.prefilter_pairs` with `variant`'s rule: the pairs its
+    kernel's prefilter leaves, which its filtered bound counts
+    (bounds.dense_seconds)."""
+    return trace_pallas.prefilter_pairs(
+        origins, dirs, tris_packed, block_mask,
+        prefilter=lambda o, d, tb, mode: variant_prefilter(o, d, tb,
+                                                           variant, mode))
+
+
+def variant_pairs(variant: str, prefilter: bool = False):
     """The pair function of a tile-math variant, with `_mt_tile_t`'s
-    contract: (o, d, tb) -> (t, det)."""
+    contract: (o, d, tb) -> (t, det). With `prefilter`, the pairs its
+    kernel's rule rejects get its miss value without the rest of the math
+    deciding: the kernel's walk, which equals the unfiltered pairs where the
+    rule is sound."""
     if variant not in VARIANT_CODES or variant == "probe":
         raise ValueError(f"no pair math {variant!r}")
-    return lambda o, d, tb: _mt_variant(o, d, tb, variant)
+
+    def pairs(o, d, tb):
+        t, det = _mt_variant(o, d, tb, variant)
+        if prefilter:
+            keep = variant_prefilter(o[:, :, None], d[:, :, None],
+                                     tb[:, None, :], variant)[2]
+            miss = BF16_MISS if variant == "bf16" else MISS
+            t = torch.where(keep, t, torch.full_like(t, miss))
+        return t, det
+
+    return pairs
 
 
 def _closest_hit(origins, dirs, tris_packed, tile: int, pairs, miss: float):
@@ -248,16 +328,17 @@ def sweep_variant(origins, dirs, tris_packed, outer_cols: int,
         ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
         ("tris_packed", tris_packed, torch.float32),
         ("block_mask", block_mask, torch.int32)))
-    n = origins.shape[1]
-    lib = cuda_build.load("ablate_sweep")
-    out = torch.empty((5 if with_fwd2 else 4, n), dtype=torch.float32,
-                      device=origins.device)
+    n, ttot = origins.shape[1], tris_packed.shape[1]
+    rows = 5 if with_fwd2 else 4
+    lib, slices, _, part = trace_pallas.dense_scratch("ablate_sweep", origins,
+                                                      ttot, rows)
+    out = torch.empty((rows, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
     rc = lib.ablate_sweep(
         ctypes.c_int(VARIANT_CODES[variant]), p(origins), p(dirs),
-        ctypes.c_int(n), p(tris_packed), ctypes.c_int(tris_packed.shape[1]),
+        ctypes.c_int(n), p(tris_packed), ctypes.c_int(ttot),
         ctypes.c_int(outer_cols), p(block_mask), ctypes.c_int(int(with_fwd2)),
-        p(out), cuda_build.stream_of(origins))
+        ctypes.c_int(slices), p(part), p(out), cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, "ablate_sweep")
     sweep_variant.launches[variant] += 1
     return out
@@ -275,12 +356,30 @@ def _bf16_parts(x, passes: int):
     return [hi, (x - hi.float()).to(torch.bfloat16)]
 
 
-def mxu_bf16_tile_t(o, d, tb, passes: int):
-    """The matrix formulation with the TPU's bf16 products: one pass
-    hi(F)·hi(f), or three, hi·hi + hi·lo + lo·hi; rays [3, N] x triangles
-    [9, T] -> (t, det), each [N, T], with `trace_mxu.mxu_tile_t`'s
-    contract. The bf16 products are exact in float64 and their sum is
-    rounded once to f32."""
+def mxu_bf16_rule(det, u_num, v_num):
+    """The bf16 matrix kernels' prefilter rule on the CPU
+    (csrc/ablate_mxu_bf16.cu::bm_maybe, where it is argued) on a pair's f32
+    det, u·det and v·det: False where pair_eval_raw's epilogue certainly
+    rejects the pair, |rn(2 num - det)| >= rn(|det| (1 + 2^-19)) for num =
+    u·det or v·det (or NaN). The kernel's fused multiply-add is taken here
+    in float64 and rounded to f32: the difference is exact in float64 where
+    the operands' exponents differ by 28 or less, and elsewhere the smaller
+    one is too small to move the f32 rounding, so the value is the same."""
+    h = det.abs() * MXU_BF16_H
+    d64 = det.double()
+
+    def near(num):
+        return (2.0 * num.double() - d64).float().abs() < h
+
+    return near(u_num) & near(v_num)
+
+
+def mxu_bf16_products(o, d, tb, passes: int):
+    """The four products of the matrix formulation with the TPU's bf16
+    passes: one pass hi(F)·hi(f), or three, hi·hi + hi·lo + lo·hi; rays
+    [3, N] x triangles [9, T] -> [det, u·det, v·det, t·det], each [N, T]
+    f32. The bf16 products are exact in float64 and their sum is rounded
+    once to f32."""
     fparts = _bf16_parts(trace_mxu.ray_features(o, d), passes)
 
     def dot(f):
@@ -290,16 +389,48 @@ def mxu_bf16_tile_t(o, d, tb, passes: int):
                   for i, j in terms)
         return acc.float()
 
-    t, ok, det = trace_mxu.pair_epilogue(
-        *(dot(f) for f in trace_mxu.tri_features(tb)))
-    return torch.where(ok & (t > MIN_T), t, torch.full_like(t, MISS)), det
+    return [dot(f) for f in trace_mxu.tri_features(tb)]
 
 
-def trace_mxu_bf16_twin(origins, dirs, tris_packed, passes: int):
-    """Plain-PyTorch twin of `trace_mxu_bf16`."""
-    return _closest_hit(origins, dirs, tris_packed, trace_pallas.TRI_TILE,
-                        lambda o, d, tb: mxu_bf16_tile_t(o, d, tb, passes),
-                        MISS)
+def mxu_bf16_tile_t(o, d, tb, passes: int, prefilter: bool = False):
+    """`mxu_bf16_products` through pair_eval_raw's epilogue: (t, det), each
+    [N, T], with `trace_mxu.mxu_tile_t`'s contract. With `prefilter`, the
+    pairs the kernel's rule (`mxu_bf16_rule` on the products) rejects miss
+    without the epilogue deciding."""
+    det, u_num, v_num, t_num = mxu_bf16_products(o, d, tb, passes)
+    t, ok, det = trace_mxu.pair_epilogue(det, u_num, v_num, t_num)
+    ok &= t > MIN_T
+    if prefilter:
+        ok &= mxu_bf16_rule(det, u_num, v_num)
+    return torch.where(ok, t, torch.full_like(t, MISS)), det
+
+
+def mxu_bf16_epilogue_pairs(origins, dirs, tris_packed, passes: int,
+                            chunk: int = 32768) -> int:
+    """The pairs the bf16 matrix kernel finishes in the epilogue: every pair
+    of each 8-ray x 4-triangle slot in which the rule leaves some pair
+    (`trace_mxu.slot_count` of `mxu_bf16_rule` on the twin's products),
+    over all rays (no skip mask) and every triangle. Its bound counts the
+    epilogue on these (bounds.mxu_seconds)."""
+    n, ttot = origins.shape[1], tris_packed.shape[1]
+    tile = trace_pallas.TRI_TILE
+    total = 0
+    for s in range(0, n, chunk):
+        for c in range(0, ttot, tile):
+            det, u_num, v_num, _ = mxu_bf16_products(
+                origins[:, s:s + chunk], dirs[:, s:s + chunk],
+                tris_packed[:, c:c + tile], passes)
+            total += trace_mxu.slot_count(mxu_bf16_rule(det, u_num, v_num))
+    return total
+
+
+def trace_mxu_bf16_twin(origins, dirs, tris_packed, passes: int,
+                        prefilter: bool = False):
+    """Plain-PyTorch twin of `trace_mxu_bf16` (with `prefilter`, of its
+    walk: see `mxu_bf16_tile_t`)."""
+    return _closest_hit(
+        origins, dirs, tris_packed, trace_pallas.TRI_TILE,
+        lambda o, d, tb: mxu_bf16_tile_t(o, d, tb, passes, prefilter), MISS)
 
 
 def trace_mxu_bf16(origins, dirs, tris_packed, passes: int):
@@ -307,7 +438,9 @@ def trace_mxu_bf16(origins, dirs, tris_packed, passes: int):
     taken from bf16 operands in `passes` 1 or 3 (MXU_BF16_PASSES):
     origins/dirs [3, N] f32 (N a multiple of 512), tris_packed [9, T] f32
     (T a multiple of MXU_BF16_TILE) -> [2, N] as `trace_variant`. CPU
-    tensors run the twin; CUDA tensors launch csrc/ablate_mxu_bf16.cu."""
+    tensors run the twin; CUDA tensors launch csrc/ablate_mxu_bf16.cu (its
+    slices and feature scratch sized by the library,
+    `trace_pallas.dense_scratch`)."""
     if passes not in MXU_BF16_PASSES.values():
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     _check("trace_mxu_bf16", origins, tris_packed, trace_pallas.BLOCK_RAYS,
@@ -317,14 +450,15 @@ def trace_mxu_bf16(origins, dirs, tris_packed, passes: int):
     cuda_build.check_operands("ablate_mxu_bf16", (
         ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
         ("tris_packed", tris_packed, torch.float32)))
-    n = origins.shape[1]
-    lib = cuda_build.load("ablate_mxu_bf16")
+    n, ttot = origins.shape[1], tris_packed.shape[1]
+    lib, slices, feat, part = trace_pallas.dense_scratch(
+        "ablate_mxu_bf16", origins, ttot, 2)
     out = torch.empty((2, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
     rc = lib.ablate_mxu_bf16(
         ctypes.c_int(passes), p(origins), p(dirs), ctypes.c_int(n),
-        p(tris_packed), ctypes.c_int(tris_packed.shape[1]), p(out),
-        cuda_build.stream_of(origins))
+        p(tris_packed), ctypes.c_int(ttot), ctypes.c_int(slices), p(feat),
+        p(part), p(out), cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, "ablate_mxu_bf16")
     trace_mxu_bf16.launches[passes] += 1
     return out

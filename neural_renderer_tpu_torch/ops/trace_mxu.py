@@ -166,7 +166,15 @@ def slot_pairs(rays, feats, mode: int = 0) -> int:
     every pair of each 8-ray x 4-triangle slot of a tile (rows g or g + 8,
     even or odd columns) in which `certain_miss` leaves some pair."""
     det, u, v = (rays @ f for f in feats)
-    keep = ~certain_miss(det, u, v, mode)
+    return slot_count(~certain_miss(det, u, v, mode))
+
+
+def slot_count(keep) -> int:
+    """The pairs of every 8-ray x 4-triangle pair slot of a 16 x 8 tile
+    (rows g or g + 8 of the tile, even or odd columns: the pairs one
+    mma.sync accumulator element holds across a warp) in which `keep`
+    [..., R, T] (R in whole 16-ray m-tiles, T in whole 8-triangle n-tiles)
+    keeps some pair: the pairs a matrix kernel's epilogue finishes."""
     r, t = keep.shape[-2:]
     slots = keep.reshape(-1, r // 16, 2, 8, t // 8, 4, 2).any(dim=(3, 5))
     return int(slots.sum()) * 32

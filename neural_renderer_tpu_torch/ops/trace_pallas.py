@@ -205,21 +205,25 @@ def dense_prefilter(o, d, tb, mode: int = 0):
 
 
 def prefilter_pairs(origins, dirs, tris_packed, block_mask, mode: int = 0,
-                    chunk: int = 32768) -> tuple[int, int, int]:
+                    chunk: int = 32768,
+                    prefilter=None) -> tuple[int, int, int]:
     """(pairs the prefilter's facing test leaves, pairs its u test leaves,
     pairs its v test leaves) of the live blocks' rays against every
     triangle: the FP32 dense kernels' bound (ops/bounds.py::dense_seconds)
     counts the u test on the first, the v test on the second and the rest
     of Möller–Trumbore on the third. Triangles with e1 = 0 (the padding,
     which the kernels skip, and a mesh's degenerate ones: det = 0, which
-    every test rejects) are not counted."""
+    every test rejects) are not counted. `prefilter` (o, d, tb, mode) ->
+    (facing, keep_u, keep_v) replaces `dense_prefilter` (the ablation's
+    sweep variants' rules)."""
+    prefilter = prefilter or dense_prefilter
     live = torch.repeat_interleave(block_mask != 0, BLOCK_RAYS)
     o, d = origins[:, live], dirs[:, live]
     tris_packed = tris_packed[:, (tris_packed[3:6] != 0).any(dim=0)]
     left = [0, 0, 0]
     for s in range(0, o.shape[1], chunk):
         for c in range(0, tris_packed.shape[1], TRI_TILE):
-            kept = dense_prefilter(
+            kept = prefilter(
                 o[:, s:s + chunk, None], d[:, s:s + chunk, None],
                 tris_packed[:, None, c:c + TRI_TILE], mode)
             for k, keep in enumerate(kept):
@@ -230,7 +234,8 @@ def prefilter_pairs(origins, dirs, tris_packed, block_mask, mode: int = 0,
 def dense_scratch(name: str, origins, ttot: int, rows: int):
     """(library, slices, feature scratch, partial rows) of a launch of the
     dense library `name` (trace_dense, sweep_dense, trace_dense_mxu,
-    sweep_dense_mxu), as the library's own `<name>_shape` sizes it
+    sweep_dense_mxu; the ablation's ablate_sweep, ablate_mxu_bf16), as the
+    library's own `<name>_shape` sizes it
     (csrc/dense_slices.cuh::nr_dense_slices; the FP32 kernels need no
     feature scratch)."""
     lib = cuda_build.load(name)

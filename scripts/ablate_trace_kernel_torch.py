@@ -31,8 +31,11 @@ reps, best of 3. Each time is taken with CUDA events over `reps` launches
 back to back. Beside it: the bound (the least time the card could take:
 the variant's operations over the card's peak rate for their type, see
 ops/bounds.py), hitmm and terr against `current`, and for the sweep family
-maxdiff against `sweep`. Needs a CUDA device; runs every variant named and
-exits 1 if any failed.
+maxdiff against `sweep`. The kernels behind a prefilter (the sweep rows
+but `sweep_mxu`, which counts its epilogue's pairs, and mxu_hi3, mxu_lo)
+print the bound on the pairs the prefilter leaves, the bound on every
+pair ("per pair") and the share of pairs the rule leaves ("survivors").
+Needs a CUDA device; runs every variant named and exits 1 if any failed.
 """
 
 from __future__ import annotations
@@ -67,24 +70,35 @@ def card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def bound_ms(label: str, pairs: int, converted: int | None = None) -> float:
+def tile_math(label: str) -> str:
+    """The tile math of variant `label`: the sweep family's follows
+    "sweep_"; the production trace and sweeps (current, sweep, sweep_nof2)
+    run `local`'s."""
+    math = (label[len("sweep_"):] if label.startswith("sweep_")
+            else trace_ablation.TRACE_COMBOS.get(label, ("local",))[0])
+    return math if math in bounds.FP32_OPS or math == "bf16" else "local"
+
+
+def bound_ms(label: str, pairs: int, converted: int | None = None,
+             left: tuple[int, int, int] | None = None) -> float:
     """The least time of variant `label` on `pairs` (ray, triangle) pairs:
     its operations over the peak rate for their type (ops/bounds.py); for
     the matrix forms the larger of the tensor products, the FP32 operations
     and, for the FP64 ones (K8, K4-MXU), the conversions of the `converted`
-    pairs their prefilter leaves to the epilogue."""
+    pairs their prefilter leaves to the epilogue (for the bf16 ones, with
+    `converted` None, the epilogue on every pair). `left`: the pairs a
+    sweep row's prefilter leaves (its facing, u and v tests), counted as
+    bounds.dense_seconds does; None counts every pair at the variant's
+    operations."""
     if label in ("mxu_hi", "sweep_mxu"):
         s = bounds.mxu_seconds(pairs, converted=converted)
     elif label in trace_ablation.MXU_BF16_PASSES:
-        s = bounds.mxu_seconds(pairs, trace_ablation.MXU_BF16_PASSES[label])
+        s = bounds.mxu_seconds(pairs, trace_ablation.MXU_BF16_PASSES[label],
+                               converted)
+    elif left is not None:
+        s = bounds.dense_seconds(pairs, *left, math=tile_math(label))
     else:
-        # The sweep family's tile math follows "sweep_"; the production
-        # trace and sweeps (current, sweep, sweep_nof2) run `local`'s.
-        math = (label[len("sweep_"):] if label.startswith("sweep_")
-                else trace_ablation.TRACE_COMBOS.get(label, ("local",))[0])
-        if math not in bounds.FP32_OPS and math != "bf16":
-            math = "local"
-        s = bounds.trace_seconds(math, pairs)
+        s = bounds.trace_seconds(tile_math(label), pairs)
     return s * 1e3
 
 
@@ -205,7 +219,8 @@ def sweep_fn(label: str, origins, dirs, tris, outer_cols: int):
 def run_trace_family(variants, num_tris: int, n: int, reps: int, device):
     """Time each trace variant and hold it against `current`; prints the
     reference's line per variant. Returns ({label: {"ms", "bound_ms", "out"}
-    or the exception that failed it}, (origins, dirs, tris))."""
+    (with "pair_bound_ms" and "survivors" for the prefiltered kernels) or
+    the exception that failed it}, (origins, dirs, tris))."""
     origins, dirs, tris = trace_workload(num_tris, n, device)
     print(f"workload: {tris.shape[1]} tris (pad "
           f"{padded(tris, trace_pallas.TRI_TILE).shape[1]}) x {n} rays x "
@@ -232,16 +247,26 @@ def run_trace_family(variants, num_tris: int, n: int, reps: int, device):
             continue
         pairs = n * tpad
         converted = None
+        tp = padded(tris, trace_pallas.TRI_TILE)
         if label == "mxu_hi":
             ones = torch.ones(n // trace_pallas.BLOCK_RAYS, dtype=torch.int32,
                               device=device)
-            converted = trace_mxu.epilogue_pairs(
-                origins, dirs, padded(tris, trace_pallas.TRI_TILE), ones, 0)
-        bms = bound_ms(label, pairs, converted)
-        print(f"{label:8s}: {ms:7.3f} ms/call  {ms * 1e9 / pairs:6.2f} "
-              f"ps/pair  {n / ms / 1e3:7.2f} Mrays/s   hitmm {mm:.1e} terr "
-              f"{terr:.1e}   bound {bms:.3f} ms", flush=True)
-        results[label] = dict(ms=ms, bound_ms=bms, out=out)
+            converted = trace_mxu.epilogue_pairs(origins, dirs, tp, ones, 0)
+        elif label in trace_ablation.MXU_BF16_PASSES:
+            converted = trace_ablation.mxu_bf16_epilogue_pairs(
+                origins, dirs, tp, trace_ablation.MXU_BF16_PASSES[label])
+        res = dict(ms=ms, bound_ms=bound_ms(label, pairs, converted),
+                   out=out)
+        line = (f"{label:8s}: {ms:7.3f} ms/call  {ms * 1e9 / pairs:6.2f} "
+                f"ps/pair  {n / ms / 1e3:7.2f} Mrays/s   hitmm {mm:.1e} terr "
+                f"{terr:.1e}   bound {res['bound_ms']:.3f} ms")
+        if label in trace_ablation.MXU_BF16_PASSES:
+            res.update(pair_bound_ms=bound_ms(label, pairs),
+                       survivors=converted / pairs)
+            line += (f" (per pair {res['pair_bound_ms']:.3f} ms, survivors "
+                     f"{res['survivors']:.3e})")
+        print(line, flush=True)
+        results[label] = res
     return results, (origins, dirs, tris)
 
 
@@ -268,16 +293,29 @@ def run_sweep_family(variants, n: int, reps: int, device):
             results[label] = e
             continue
         pairs = n * tris.shape[1]
-        converted = None
+        ones = torch.ones(n // trace_pallas.BLOCK_RAYS, dtype=torch.int32,
+                          device=device)
         if label == "sweep_mxu":
-            ones = torch.ones(n // trace_pallas.BLOCK_RAYS, dtype=torch.int32,
-                              device=device)
-            converted = trace_mxu.epilogue_pairs(origins, dirs, tris, ones, 0)
-        bms = bound_ms(label, pairs, converted)
+            res = dict(ms=ms, out=out, bound_ms=bound_ms(
+                label, pairs, trace_mxu.epilogue_pairs(origins, dirs, tris,
+                                                       ones, 0)))
+            extra = ""
+        else:
+            math = tile_math(label)
+            left = (trace_pallas.prefilter_pairs(origins, dirs, tris, ones)
+                    if math == "local" else
+                    trace_ablation.variant_prefilter_pairs(
+                        origins, dirs, tris, ones, math))
+            res = dict(ms=ms, out=out, bound_ms=bound_ms(label, pairs,
+                                                         left=left),
+                       pair_bound_ms=bound_ms(label, pairs),
+                       survivors=left[2] / pairs)
+            extra = (f" (per pair {res['pair_bound_ms']:.3f} ms, survivors "
+                     f"{res['survivors']:.3e})")
         print(f"{label:12s}: {ms:7.3f} ms/call  {ms * 1e6 / n:6.2f} ns/ray  "
               f"{n / ms / 1e3:7.2f} Mrays/s  maxdiff {err:.2e}   bound "
-              f"{bms:.3f} ms", flush=True)
-        results[label] = dict(ms=ms, bound_ms=bms, out=out)
+              f"{res['bound_ms']:.3f} ms{extra}", flush=True)
+        results[label] = res
     return results, (origins, dirs, tris, outer_cols)
 
 

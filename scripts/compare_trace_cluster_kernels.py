@@ -4,8 +4,17 @@ the dense closest hit (K3, K8) and dual-shell sweep (K4, K4-MXU); and the
 tcnn-layout fused MLP (K7).
 
     python scripts/compare_trace_cluster_kernels.py [TREE] [--k7]
+    python scripts/compare_trace_cluster_kernels.py [TREE] --k9 \
+        [--k9-against JSON]
 
-With --k7 only the K7 cases run.
+With --k7 only the K7 cases run. With --k9 only the K9 cases run: the
+ablation's bf16 matrix form (mxu_hi3, mxu_lo, on its 262,144 rays x 9,216
+triangles) and sweep variants (sweep_nodiv, sweep_recip, sweep_recipx,
+sweep_bf16, on its 262,144 camera rays x 2,304 + 2,304 triangles), each
+timed as below with the sha256 of its output's bytes. --k9-against names
+a file whose last line is an earlier --k9 run's (another tree's, on the
+same card): the run then reports which outputs equal that run's bit for
+bit and exits 1 unless mxu_hi3's and mxu_lo's do.
 
 Imports neural_renderer_tpu_torch from TREE (default: this checkout), so
 two versions compare on one card by running it on each in turns: this
@@ -91,9 +100,19 @@ import sys
 SLICE = 131072
 
 
+K9_MATRIX = ("mxu_hi3", "mxu_lo")
+K9_SWEEPS = ("sweep_nodiv", "sweep_recip", "sweep_recipx", "sweep_bf16")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    args = [a for a in sys.argv[1:] if a != "--k7"]
+    argv = sys.argv[1:]
+    against = None
+    if "--k9-against" in argv:
+        i = argv.index("--k9-against")
+        against = argv[i + 1]
+        del argv[i:i + 2]
+    args = [a for a in argv if a not in ("--k7", "--k9")]
     tree = os.path.abspath(args[0] if args else here)
     sys.path.insert(0, tree)
     import torch
@@ -210,6 +229,19 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     out = {"tree": tree, "card": smi}
+    if "--k9" in argv:
+        out.update(k9_cases(torch, times, here))
+        rc = 0
+        if against is not None:
+            with open(against) as f:
+                ref = json.loads(f.read().strip().splitlines()[-1])
+            out["equal_to"] = ref["tree"]
+            for label in K9_MATRIX + K9_SWEEPS:
+                out[label]["equal"] = (out[label]["sha256"]
+                                       == ref[label]["sha256"])
+            rc = 0 if all(out[k]["equal"] for k in K9_MATRIX) else 1
+        print(json.dumps(out), flush=True)
+        return rc
     out.update(k7_cases(torch, dev, times, here))
     if "--k7" in sys.argv:
         print(json.dumps(out), flush=True)
@@ -427,6 +459,27 @@ def k7_cases(torch, dev, times, here):
         r.update({f"K7_kernel_{k}": v for k, v in times(kernel).items()})
         res[label] = r
         del enc, rows
+    return res
+
+
+def k9_cases(torch, times, here):
+    """The K9 cases of the module docstring: {label: {"sha256", times}}, on
+    the ablation's workloads (this checkout's
+    scripts/ablate_trace_kernel_torch.py, whichever tree's package runs)."""
+    import hashlib
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import ablate_trace_kernel_torch as ablate
+    o, d, tris = ablate.trace_workload(9216, 262144, "cuda")
+    so, sd, stris, cols = ablate.sweep_workload(262144, "cuda")
+    res = {}
+    for label in K9_MATRIX + K9_SWEEPS:
+        if label in K9_MATRIX:
+            fn, x = ablate.trace_fn(label, o, d, tris)[0], o
+        else:
+            fn, x = ablate.sweep_fn(label, so, sd, stris, cols), so
+        out = fn(x).cpu().numpy()
+        res[label] = {"sha256": hashlib.sha256(out.tobytes()).hexdigest(),
+                      **times(lambda: fn(x))}
     return res
 
 

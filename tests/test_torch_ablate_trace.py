@@ -356,17 +356,21 @@ class _PairOps(TorchDispatchMode):
                                   "probe", "bf16", "mxu", "mxu_prefilter",
                                   "dense_prefilter", "dense_second_test",
                                   "mt_pairs", "dense_facing",
-                                  "dense_first_test"])
+                                  "dense_first_test", "mxu_bf16_prefilter",
+                                  "variant_prefilter_recipx",
+                                  "variant_prefilter_nodiv",
+                                  "variant_prefilter_bf16"])
 def test_bound_counts_are_the_twins_operations(math):
     """Each pair function's operations, as its twin performs them, are the
     count its bound takes (ops/bounds.py): 46 for Möller–Trumbore (the
     ablation's `local` and the production twin `_mt_pairs`), 47 for nodiv,
     50 for the probe, bf16's 45 packed operations and its divide, the
     matrix form's 4 products, 4 conversions and 5-operation epilogue, the
-    matrix kernels' prefilter's 3 operations, and the FP32 dense kernels'
-    prefilter: det and the facing test 14, the u test 10, the v test 14,
-    all three 38, and with the rest of Möller–Trumbore (10) the 46 less
-    the rule's 2 multiplies."""
+    matrix kernels' prefilter's 3 operations (the bf16-product kernels'
+    3 too), and the FP32 dense kernels' prefilter: det and the facing test 14,
+    the u test 10, the v test 14, all three 38, and with the rest of
+    Möller–Trumbore (10) the 46 less the rule's 2 multiplies; the sweep
+    variants' rules (PREFILTER_OPS, BF16_PREFILTER_*) likewise."""
     rng = np.random.default_rng(3)
     n, t = 7, 11                 # no per-ray or per-triangle tensor has N T
     o, d = (_t(rng.normal(size=(3, n)).astype(np.float32))
@@ -405,6 +409,12 @@ def test_bound_counts_are_the_twins_operations(math):
         elif math == "mt_pairs":
             trace_pallas._mt_pairs(o[:, :, None], d[:, :, None],
                                    tb[:, None, :])
+        elif math == "mxu_bf16_prefilter":
+            trace_ablation.mxu_bf16_rule(*pair_operands(3))
+        elif math.startswith("variant_prefilter_"):
+            trace_ablation.variant_prefilter(
+                o[:, :, None], d[:, :, None], tb[:, None, :],
+                math[len("variant_prefilter_"):])
         else:
             trace_ablation._mt_variant(o, d, tb, math)
     dense = {"dense_prefilter": bounds.DENSE_DET + bounds.DENSE_U
@@ -416,6 +426,24 @@ def test_bound_counts_are_the_twins_operations(math):
                          "convert": bounds.MXU_CONVERSIONS, "product": 4}
     elif math == "mxu_prefilter":
         assert c.ops == {"torch.float32": bounds.MXU_PREFILTER}
+    elif math == "mxu_bf16_prefilter":
+        # Its two fused multiply-adds are taken as a float64 multiply and
+        # subtract each, between conversions.
+        assert c.ops == {"torch.float32": 1, "torch.float64": 4,
+                         "convert": 5}
+        assert 1 + 4 // 2 == bounds.MXU_BF16_PREFILTER
+    elif math == "variant_prefilter_bf16":
+        assert c.ops == {"torch.bfloat16":
+                         sum(bounds.BF16_PREFILTER_PACKED[:3]),
+                         "torch.float32": 2, "convert": 3}
+        assert sum(bounds.BF16_PREFILTER_FP32[:3]) == 2 + 3
+        assert sum(bounds.BF16_PREFILTER_PACKED) == bounds.BF16_PACKED_OPS
+        assert sum(bounds.BF16_PREFILTER_FP32) - 4 == bounds.BF16_FP32_OPS
+    elif math.startswith("variant_prefilter_"):
+        var = math[len("variant_prefilter_"):]
+        assert c.ops == {"torch.float32": sum(bounds.PREFILTER_OPS[var][:3])}
+        assert sum(bounds.PREFILTER_OPS[var]) - (2 if var != "nodiv" else 0) \
+            == bounds.FP32_OPS[var]
     elif math in dense:
         assert c.ops == {"torch.float32": dense[math]}
     elif math == "mt_pairs":

@@ -980,6 +980,79 @@ def test_ablation_sweep_kernel_matches_twin(cuda, variant, with_fwd2):
         assert torch.equal(ker, twin)
 
 
+@pytest.mark.parametrize("variant", trace_ablation.SWEEP_VARIANTS)
+def test_ablation_sweep_second_crossing_across_slices(cuda, variant):
+    """The sweep variants on K4's walk, one 512-ray block (the most
+    slices) along the axis of a two-lobe outer shell: the strict second
+    forward row comes from crossings in different slices."""
+    r = np.random.default_rng(37)
+    o = np.stack([np.full(512, -3.0), *r.uniform(-0.3, 0.3, (2, 512))])
+    d = np.stack([np.ones(512), *r.uniform(-0.05, 0.05, (2, 512))])
+    o = torch.as_tensor(o.astype(np.float32), device=cuda)
+    d = torch.as_tensor((d / np.linalg.norm(d, axis=0)).astype(np.float32),
+                        device=cuda)
+    inner = outward_sphere(4, 8, 0.3).to_tensors(cuda)
+    ops = traversal.dense_sweep_operands(_two_lobes(cuda, 8), inner, o, d)
+    assert trace_pallas.dense_scratch("ablate_sweep", ops[0],
+                                      ops[2].shape[1], 5)[1] > 2
+    ker = trace_ablation.sweep_variant(*ops[:4], True, ops[4], variant)
+    twin = trace_pallas.sweep_shells_dense_twin(
+        *ops[:4], True, ops[4], pairs=trace_ablation.variant_pairs(variant))
+    if variant == "recipx":
+        _hold_rows(ker, twin, dict(rtol=1e-6, atol=0.0, ids=0.0))
+    else:
+        assert torch.equal(ker, twin)
+    assert (ker[4] < 1e30).sum() > 100
+
+
+@pytest.mark.parametrize("name, cta_rays, per_sm",
+                         [("ablate_sweep", 512, 16),
+                          ("ablate_mxu_bf16", 256, 48)])
+def test_ablation_launch_shape(cuda, name, cta_rays, per_sm):
+    """The redesigned K9 libraries size their launches as the dense
+    kernels do: slices of whole 64-triangle chunks until the CTAs reach
+    `per_sm` a SM, one slice for a launch that fills the card alone; the
+    matrix form's feature scratch holds 256 8-byte words an 8-triangle
+    n-tile."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for npad in (512, 4096, 262144, 2 ** 21):
+        for ttot in (576, 9216):
+            rays = torch.empty((3, npad), device=cuda)
+            _, slices, feat, part = trace_pallas.dense_scratch(name, rays,
+                                                               ttot, 2)
+            ctas = npad // cta_rays
+            assert 1 <= slices <= ttot // 64
+            assert slices * ctas >= per_sm * sms or slices == ttot // 64
+            assert slices == 1 or (slices - 1) * ctas < per_sm * sms
+            assert feat.numel() == (ttot // 8 * 256
+                                    if name == "ablate_mxu_bf16" else 0)
+            assert part.shape[0] == (slices if slices > 1 else 0)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("n, stacks", [(512, 48), (4096, 12), (4096, 20)])
+def test_ablation_mxu_bf16_kernel_shapes(cuda, passes, n, stacks):
+    """The bf16 matrix form on one 512-ray block against 9,216 triangles
+    (many slices, folded), and on 576 and 1,600 triangles (9 and 25
+    chunks): within the kernel-against-twin bounds, and the same launch
+    twice bit-equal."""
+    r = np.random.default_rng(11)
+    o = r.normal(size=(n, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = r.normal(size=(n, 3)) * 0.6 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.as_tensor(np.ascontiguousarray(x.T, np.float32),
+                            device=cuda) for x in (o, d))
+    tris = outward_sphere(stacks, 2 * stacks, 1.0).to_tensors(cuda) \
+        .tris_packed
+    ker = trace_ablation.trace_mxu_bf16(o, d, tris, passes)
+    twin = trace_ablation.trace_mxu_bf16_twin(o, d, tris, passes)
+    _hold(ker[0], twin[0], _TWIN_BOUNDS, ker[1].view(torch.int32),
+          twin[1].view(torch.int32), min_hits=n // 4)
+    assert torch.equal(ker, trace_ablation.trace_mxu_bf16(o, d, tris,
+                                                          passes))
+
+
 @pytest.mark.parametrize("passes", [1, 3])
 def test_ablation_mxu_bf16_kernel_matches_twin(cuda, passes):
     """The bf16 matrix form (mxu_lo, mxu_hi3) against its twin."""
