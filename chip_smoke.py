@@ -138,9 +138,11 @@ its training. Phases, each failing the run:
      ABLATE_ULPS; bf16 within ABLATE_BF16; current (K3), sweep (K4),
      mxu_hi (K8) and sweep_mxu (K4-MXU) bit-exact to their twins, the last
      two within phase 17's bounds of K3 and K4); time each twin; log, for
-     the kernels behind a prefilter (mxu_hi3, mxu_lo, the sweep variants),
-     the bound on the pairs the rule leaves, the bound on every pair and
-     the share the rule leaves;
+     the kernels behind a prefilter (the trace variants on K3's walk, every
+     one but the probes; mxu_hi3, mxu_lo; the sweep variants), the bound on
+     the pairs the rule leaves, the bound on every pair and the share the
+     rule leaves, and `local`'s time over `current`'s (the same walk at the
+     same launch, timed in this run);
  21. run `evaluate` on the shipped lane sphere (configs/sphere/
      sphere_lane.json) at 480x270 x 64 and hold it to 1 dB under the JAX
      record (PSNR >= 50.54 dB, mean FLIP <= 0.018); then run bench_torch.py
@@ -2719,8 +2721,9 @@ def ablation_phase(kernels, launches):
             ops_seconds=res["bound_ms"] * 1e-3, bytes=nbytes_,
             library_ms=None)
         if "pair_bound_ms" in res:
-            # The prefiltered kernels (mxu_hi3, mxu_lo, the sweep variants):
-            # bound_ms counts what the rule leaves, this bound every pair.
+            # The prefiltered kernels (the trace variants on K3's walk,
+            # mxu_hi3, mxu_lo, the sweep variants): bound_ms counts what the
+            # rule leaves, this bound every pair.
             slots = (" (every pair of each slot where it leaves one)"
                      if label in ta.MXU_BF16_PASSES else "")
             log(f"[bound K9 {label}] on the pairs its prefilter leaves "
@@ -2733,6 +2736,9 @@ def ablation_phase(kernels, launches):
 
     k3 = traces["current"]["out"]
     n = o.shape[1]
+    log(f"[K9 local/current] {traces['local']['ms']:.4f} / "
+        f"{traces['current']['ms']:.4f} ms = "
+        f"{traces['local']['ms'] / traces['current']['ms']!r}")
     for label, (var, block, tile) in ta.TRACE_COMBOS.items():
         res = traces[label]
         ker = res["out"]

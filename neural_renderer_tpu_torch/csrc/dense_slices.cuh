@@ -1,7 +1,8 @@
 // Shared code of the dense kernels, every ray against every triangle: the
 // launch shape and the fold of triangle slices, used by the FP32 kernels
-// K3 (trace_dense.cu) and K4 (sweep_dense.cu, both through mt_dense.cuh)
-// and the matrix-form kernels K8 and K4-MXU (mt_mxu.cuh).
+// K3 (trace_dense.cu) and K4 (sweep_dense.cu, both through mt_dense.cuh),
+// the matrix-form kernels K8 and K4-MXU (mt_mxu.cuh) and the trace-kernel
+// ablation's (ablate_*.cu).
 //
 // Slices. A launch whose rays fill fewer than the card's CTA slots splits
 // the triangles into `slices` ranges of whole chunks (blockIdx.y); each
@@ -46,17 +47,19 @@ __device__ __forceinline__ int nr_slice_chunk(int s, int nchunks,
 // kRows 2 the closest hit (t, id bitcast), 4 or 5 the sweep's rows
 // outer_fwd, outer_bwd, inner_fwd, inner_bwd[, outer_fwd2]. Rays of a
 // dead skip block get the miss (id 0); without skip flags (block_mask
-// null) every ray is live.
+// null) every ray is live. `miss`: the closest hit's miss value, which
+// the fold starts from (1e30; the ablation's bf16 tile math has its own).
 template <int kRows>
 __global__ void __launch_bounds__(256)
 nr_dense_fold(const float* __restrict__ part, int npad, int slices,
-              const int* __restrict__ block_mask, float* __restrict__ out) {
+              const int* __restrict__ block_mask, float miss,
+              float* __restrict__ out) {
   const long long r = (long long)blockIdx.x * 256 + threadIdx.x;
   if (r >= npad) return;
   const bool live =
       block_mask == nullptr || block_mask[r / NR_SKIP_RAYS] != 0;
   if constexpr (kRows == 2) {
-    float bt = NR_MISS;
+    float bt = miss;
     int bi = 0;
     for (int s = 0; live && s < slices; ++s)
       nr_hit_update(bt, bi, part[2LL * s * npad + r],
@@ -90,9 +93,9 @@ nr_dense_fold(const float* __restrict__ part, int npad, int slices,
 template <int kRows>
 void nr_dense_fold_launch(const float* part, int npad, int slices,
                           const int* block_mask, float* out,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, float miss = NR_MISS) {
   if (slices > 1) {
     nr_dense_fold<kRows><<<(npad + 255) / 256, 256, 0, stream>>>(
-        part, npad, slices, block_mask, out);
+        part, npad, slices, block_mask, miss, out);
   }
 }

@@ -2,25 +2,28 @@
 // (sweep_dense.cu): every ray against every triangle, in FP32
 // Möller–Trumbore behind a prefilter. Their launch shape and the fold of
 // triangle slices are dense_slices.cuh's. The walk and K4's sweep are
-// templates over the tile math (DfMt below), so that the trace-kernel
-// ablation's sweep variants (ablate_sweep.cu) run the same walk with their
-// own pair math and prefilter rules.
+// templates over the tile math (DfMt below), and the walk over its shape
+// (DfShape), so that the trace-kernel ablation (ablate_trace.cu,
+// ablate_sweep.cu; its tile maths in mt_variants.cuh) runs the same walk
+// with its own pair math, prefilter rules, CTAs and chunks.
 //
-// A CTA of DF_THREADS threads takes DF_RAYS rays of one 512-ray skip block
-// (the flag is read at ray0 / 512, so it keeps its meaning), DF_R rays a
-// thread: rays ray0 + i DF_THREADS + tid, so a warp holds 32 neighbouring
-// rays. Triangles are staged DF_CHUNK at a time from their [9, T] rows by
-// 4-byte cp.async into a triangle-major tile (12 floats a triangle: v0,
-// e1, e2, three unused) in a double buffer; a pair reads its triangle as
-// three 16-byte broadcast loads, and the thread runs them against its DF_R
-// rays. A chunk whose triangles all have e1 = 0 (the padding: det = 0 or
-// NaN for every ray, so nr_mt_t misses) is skipped whole.
+// A CTA of S::kThreads threads takes S::kRays rays, DF_R rays a thread:
+// rays ray0 + i S::kThreads + tid, so a warp holds 32 neighbouring rays.
+// Where a kernel reads skip flags, a CTA lies in one 512-ray skip block
+// (the flag is read at ray0 / 512, so it keeps its meaning). Triangles are
+// staged S::kChunk at a time from their [9, T] rows by 4-byte cp.async
+// into a triangle-major tile (12 floats a triangle: v0, e1, e2, three
+// unused) in a double buffer; a pair reads its triangle as three 16-byte
+// broadcast loads, and the thread runs them against its DF_R rays. A
+// chunk whose triangles all have e1 = 0 (the padding: det = 0 or NaN for
+// every ray, so nr_mt_t misses) is skipped whole.
 //
-// Settings: 256 threads of two rays, 64-triangle chunks, 16 CTAs per SM
-// for a one-slice launch. A design sweep of other values (PERF.md)
-// found none more than 5% faster on every dense case; without the
-// prefilter the walk took 1.6-2.3x as long, with u and v tested together
-// on every pair 1.2-1.4x, with one ray a thread 1.04-1.12x.
+// K3's and K4's shape (DfDense): 256 threads of two rays, 64-triangle
+// chunks, 16 CTAs per SM for a one-slice launch. A design sweep of other
+// values (PERF.md) found none more than 5% faster on every dense case;
+// without the prefilter the walk took 1.6-2.3x as long, with u and v
+// tested together on every pair 1.2-1.4x, with one ray a thread
+// 1.04-1.12x.
 //
 // Prefilter (df_face, df_keep_u, df_keep_v). Möller–Trumbore's divide and
 // its second half only serve the pairs that can hit, and a ray meets the
@@ -58,13 +61,20 @@
 
 #include "dense_slices.cuh"
 
-#define DF_THREADS 256     // threads per CTA
 #define DF_R 2             // rays per thread
-#define DF_CHUNK 64        // triangles per staged chunk
-#define DF_CTAS_PER_SM 16  // a one-slice launch's CTAs per SM, at least
-#define DF_RAYS (DF_THREADS * DF_R)
+#define DF_CTAS_PER_SM 16  // a one-slice K3 / K4 launch's CTAs an SM, at least
 #define DF_TRI_STRIDE 12   // floats per triangle in the tile
-static_assert(NR_SKIP_RAYS % DF_RAYS == 0, "a CTA lies in one skip block");
+
+// A walk's shape: CTAs of kThreads threads (kRays rays), triangles staged
+// kChunk at a time (each half of the double buffer kBuf floats).
+template <int kThreads_, int kChunk_>
+struct DfShape {
+  static constexpr int kThreads = kThreads_;
+  static constexpr int kChunk = kChunk_;
+  static constexpr int kRays = kThreads_ * DF_R;
+  static constexpr int kBuf = kChunk_ * DF_TRI_STRIDE;
+};
+using DfDense = DfShape<256, 64>;  // K3's and K4's
 
 #define DF_LO (-9.5367431640625e-07f)      // -2^-20
 #define DF_HI 1.00000095367431640625f       // 1 + 2^-20
@@ -74,18 +84,20 @@ struct DfRays {
   float ox[DF_R], oy[DF_R], oz[DF_R], dx[DF_R], dy[DF_R], dz[DF_R];
 };
 
-// The thread's ray i of the CTA starting at ray0.
+// The thread's ray i of the CTA of shape S starting at ray0.
+template <class S>
 __device__ __forceinline__ long long df_ray(long long ray0, int i) {
-  return ray0 + (long long)i * DF_THREADS + threadIdx.x;
+  return ray0 + (long long)i * S::kThreads + threadIdx.x;
 }
 
+template <class S>
 __device__ __forceinline__ void df_load(const float* __restrict__ o,
                                         const float* __restrict__ d,
                                         int npad, long long ray0,
                                         DfRays& r) {
 #pragma unroll
   for (int i = 0; i < DF_R; ++i) {
-    const long long q = df_ray(ray0, i);
+    const long long q = df_ray<S>(ray0, i);
     r.ox[i] = o[q];
     r.oy[i] = o[npad + q];
     r.oz[i] = o[2LL * npad + q];
@@ -169,14 +181,16 @@ __device__ __forceinline__ bool df_keep_u(const DfRays& r, int i,
   return !df_out<kMode, R>(un, p);
 }
 
-// Start the copies of chunk c of the [9, total] triangle rows into `dst`.
+// Start the copies of chunk c (S::kChunk triangles) of the [9, total]
+// triangle rows into `dst`.
+template <class S>
 __device__ __forceinline__ void df_stage(float* dst,
                                          const float* __restrict__ tris,
                                          long long total, int c) {
-  const long long col0 = (long long)c * DF_CHUNK;
-  for (int e = threadIdx.x; e < 9 * DF_CHUNK; e += DF_THREADS) {
-    const int row = e / DF_CHUNK;
-    const int col = e - row * DF_CHUNK;
+  const long long col0 = (long long)c * S::kChunk;
+  for (int e = threadIdx.x; e < 9 * S::kChunk; e += S::kThreads) {
+    const int row = e / S::kChunk;
+    const int col = e - row * S::kChunk;
     nr_cp_async4(dst + col * DF_TRI_STRIDE + row,
                  tris + row * total + col0 + col);
   }
@@ -184,11 +198,12 @@ __device__ __forceinline__ void df_stage(float* dst,
 
 // Whether any e1 component this thread staged into `tile` (df_stage's
 // elements, visible to it once its copies are waited for) is nonzero.
+template <class S>
 __device__ __forceinline__ bool df_staged_e1(const float* tile) {
   bool live = false;
-  for (int e = threadIdx.x; e < 9 * DF_CHUNK; e += DF_THREADS) {
-    const int row = e / DF_CHUNK;
-    const int col = e - row * DF_CHUNK;
+  for (int e = threadIdx.x; e < 9 * S::kChunk; e += S::kThreads) {
+    const int row = e / S::kChunk;
+    const int col = e - row * S::kChunk;
     if (row >= 3 && row < 6) live |= tile[col * DF_TRI_STRIDE + row] != 0.0f;
   }
   return live;
@@ -241,24 +256,27 @@ __device__ __forceinline__ void df_triangle(const DfRays& r, const float4& a,
 }
 
 // The walk's tile math M (df_walk's template argument): K3's and K4's is
-// DfMt, nr_mt_t behind the rule above; the trace-kernel ablation's sweep
-// variants bring their own (csrc/ablate_sweep.cu). M gives the walk
+// DfMt, nr_mt_t behind the rule above; the trace-kernel ablation's
+// variants bring their own (csrc/mt_variants.cuh). M gives the walk
+//   kMiss               its miss value (a rejected pair's t);
 //   Rays, rays(DfRays)  what a thread keeps of its DF_R rays;
-//   prepare(tile)       run by each thread on the chunk elements it staged
-//                       (df_stage's), once they have landed and before the
-//                       chunk's barrier;
+//   prepare<S>(tile)    run by each thread on the chunk elements it staged
+//                       (df_stage<S>'s), once they have landed and before
+//                       the chunk's barrier;
 //   triangle<kMode>(rays, a, b, c, id, fold)  one triangle against them.
 // A scalar math R (DfScalar<R>) runs df_triangle with its rule and pair:
 //   bounds(p)           the rule's bounds on a numerator, from p.det;
 //   out(w, p)           true where w = num sgn(det) rejects the pair;
-//   pair(r, i, a, b, c, &det)  t (a miss value above 1e30 where the pair
-//                       is rejected) and det.
+//   pair(r, i, a, b, c, &det)  t (kMiss, 1e30, where the pair is
+//                       rejected) and det.
 template <class R>
 struct DfScalar {
+  static constexpr float kMiss = NR_MISS;
   using Rays = DfRays;
   __device__ __forceinline__ static DfRays rays(const DfRays& r) {
     return r;
   }
+  template <class S>
   __device__ __forceinline__ static void prepare(float*) {}
   template <int kMode, class Fold>
   __device__ __forceinline__ static void triangle(const DfRays& r,
@@ -293,39 +311,39 @@ struct DfMtRcp : DfScalar<DfMtRcp<kRcp>> {
 };
 using DfMt = DfMtRcp<NR_RCP_DIV>;
 
-// Walk chunks [c0, c1) of the triangles: stage chunk c + 1 into the other
-// half of `buf` while chunk c is swept; for each triangle M's prefilter on
-// each of the thread's rays and, where some lane's pair may pass, M's pair
-// math on the lane's kept pairs into fold(i, triangle id, t, det). A thread
-// visits its triangles in increasing id.
-template <int kMode, class M = DfMt, class Fold>
+// Walk chunks [c0, c1) of the triangles in a CTA of shape S (`buf`: 2
+// S::kBuf floats): stage chunk c + 1 into the other half of `buf` while
+// chunk c is swept; for each triangle M's prefilter on each of the
+// thread's rays and, where some lane's pair may pass, M's pair math on the
+// lane's kept pairs into fold(i, triangle id, t, det). A thread visits its
+// triangles in increasing id.
+template <int kMode, class M = DfMt, class S = DfDense, class Fold>
 __device__ __forceinline__ void df_walk(const float* __restrict__ tris,
                                         int ttot, int c0, int c1,
                                         const typename M::Rays& r,
                                         float* buf, Fold&& fold) {
-  constexpr int kBuf = DF_CHUNK * DF_TRI_STRIDE;
   if (c0 < c1) {
-    df_stage(buf, tris, ttot, c0);
+    df_stage<S>(buf, tris, ttot, c0);
     nr_cp_async_commit();
   }
   for (int c = c0; c < c1; ++c) {
     if (c + 1 < c1) {
       // The other half was last read before the previous chunk's barrier.
-      df_stage(buf + ((c + 1 - c0) & 1) * kBuf, tris, ttot, c + 1);
+      df_stage<S>(buf + ((c + 1 - c0) & 1) * S::kBuf, tris, ttot, c + 1);
       nr_cp_async_commit();
       nr_cp_async_wait<1>();
     } else {
       nr_cp_async_wait<0>();
     }
-    float* cur = buf + ((c - c0) & 1) * kBuf;
-    const bool live = df_staged_e1(cur);
-    M::prepare(cur);
+    float* cur = buf + ((c - c0) & 1) * S::kBuf;
+    const bool live = df_staged_e1<S>(cur);
+    M::template prepare<S>(cur);
     // Chunk c has landed for every thread; skip it if it is padding.
     if (!__syncthreads_or(live)) continue;
     const float4* tile = reinterpret_cast<const float4*>(cur);
-    const int base = c * DF_CHUNK;
+    const int base = c * S::kChunk;
 #pragma unroll 2
-    for (int j = 0; j < DF_CHUNK; ++j)
+    for (int j = 0; j < S::kChunk; ++j)
       M::template triangle<kMode>(r, tile[3 * j], tile[3 * j + 1],
                                   tile[3 * j + 2], base + j, fold);
     __syncthreads();  // chunk c consumed before chunk c + 2 lands on it
@@ -336,7 +354,7 @@ __device__ __forceinline__ void df_walk(const float* __restrict__ tris,
 // DfMt) and the ablation's sweep variants (ablate_sweep.cu).
 //
 // tris = [outer | inner], each shell padded to whole 256-triangle tiles with
-// zero triangles that the det cull rejects, so a DF_CHUNK chunk never
+// zero triangles that the det cull rejects, so a 64-triangle chunk never
 // straddles the two shells. Per ray the rows outer_fwd, outer_bwd,
 // inner_fwd, inner_bwd[, outer_fwd2]: outer pairs fold into the strict
 // forward pair (m1f, m2f) and the backward min, inner pairs into the two
@@ -350,34 +368,36 @@ __device__ __forceinline__ void df_walk(const float* __restrict__ tris,
 // which the profiler filters of scripts/compare_trace_cluster_kernels.py
 // match.
 template <bool kFwd2, class M>
-__global__ void __launch_bounds__(DF_THREADS)
+__global__ void __launch_bounds__(DfDense::kThreads)
 sweep_dense_kernel(const float* __restrict__ o,
                    const float* __restrict__ d, int npad,
                    const float* __restrict__ tris, int ttot, int outer_cols,
                    const int* __restrict__ block_mask, int slices,
                    float* __restrict__ out) {
+  using S = DfDense;
+  static_assert(NR_SKIP_RAYS % S::kRays == 0, "a CTA in one skip block");
   constexpr int kRows = kFwd2 ? 5 : 4;
-  __shared__ __align__(16) float buf[2 * DF_CHUNK * DF_TRI_STRIDE];
-  const long long ray0 = (long long)blockIdx.x * DF_RAYS;
+  __shared__ __align__(16) float buf[2 * S::kBuf];
+  const long long ray0 = (long long)blockIdx.x * S::kRays;
   const int s = blockIdx.y;
   if (block_mask[ray0 / NR_SKIP_RAYS] == 0) {  // uniform across the CTA
     if (slices == 1) {
 #pragma unroll
       for (int i = 0; i < DF_R; ++i) {
         for (int row = 0; row < kRows; ++row)
-          out[(long long)row * npad + df_ray(ray0, i)] = NR_MISS;
+          out[(long long)row * npad + df_ray<S>(ray0, i)] = NR_MISS;
       }
     }
     return;  // with slices the fold writes the miss
   }
   DfRays r;
-  df_load(o, d, npad, ray0, r);
+  df_load<S>(o, d, npad, ray0, r);
   float m1f[DF_R], m2f[DF_R], m1b[DF_R], i1f[DF_R], i1b[DF_R];
 #pragma unroll
   for (int i = 0; i < DF_R; ++i)
     m1f[i] = m2f[i] = m1b[i] = i1f[i] = i1b[i] = NR_MISS;
-  const int nchunks = ttot / DF_CHUNK;
-  df_walk<0, M>(tris, ttot, nr_slice_chunk(s, nchunks, slices),
+  const int nchunks = ttot / S::kChunk;
+  df_walk<0, M, S>(tris, ttot, nr_slice_chunk(s, nchunks, slices),
                 nr_slice_chunk(s + 1, nchunks, slices), M::rays(r), buf,
                 [&](int i, int id, float t, float det) {
                   if (id < outer_cols) {  // uniform across the chunk
@@ -389,7 +409,7 @@ sweep_dense_kernel(const float* __restrict__ o,
   float* dst = out + (long long)s * kRows * npad;  // a slice's partial rows
 #pragma unroll
   for (int i = 0; i < DF_R; ++i) {
-    const long long q = df_ray(ray0, i);
+    const long long q = df_ray<S>(ray0, i);
     dst[q] = m1f[i];
     dst[npad + q] = m1b[i];
     dst[2LL * npad + q] = i1f[i];
@@ -403,29 +423,30 @@ sweep_dense_kernel(const float* __restrict__ o,
 static inline int df_sweep_shape(int npad, int ttot, int* slices,
                                  long long* scratch_doubles) {
   *scratch_doubles = 0;
-  return nr_dense_slices(npad, ttot, DF_RAYS, DF_CHUNK, DF_CTAS_PER_SM,
-                         slices);
+  return nr_dense_slices(npad, ttot, DfDense::kRays, DfDense::kChunk,
+                         DF_CTAS_PER_SM, slices);
 }
 
 // Launch the sweep over tile math M and, with slices, its fold. part:
 // [slices][5 or 4][npad] f32 scratch (unused with one slice). T and
-// outer_cols must be multiples of DF_CHUNK.
+// outer_cols must be multiples of the 64-triangle chunk.
 template <class M>
 int df_sweep_launch(const float* o, const float* d, int npad,
                     const float* tris, int ttot, int outer_cols,
                     const int* block_mask, int with_fwd2, int slices,
                     float* part, float* out, cudaStream_t stream) {
-  if (ttot % DF_CHUNK != 0 || outer_cols % DF_CHUNK != 0 || slices < 1)
+  using S = DfDense;
+  if (ttot % S::kChunk != 0 || outer_cols % S::kChunk != 0 || slices < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (npad / DF_RAYS == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(npad / DF_RAYS, slices);
+  if (npad / S::kRays == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(npad / S::kRays, slices);
   float* dst = slices == 1 ? out : part;
   if (with_fwd2) {
-    sweep_dense_kernel<true, M><<<grid, DF_THREADS, 0, stream>>>(
+    sweep_dense_kernel<true, M><<<grid, S::kThreads, 0, stream>>>(
         o, d, npad, tris, ttot, outer_cols, block_mask, slices, dst);
     nr_dense_fold_launch<5>(part, npad, slices, block_mask, out, stream);
   } else {
-    sweep_dense_kernel<false, M><<<grid, DF_THREADS, 0, stream>>>(
+    sweep_dense_kernel<false, M><<<grid, S::kThreads, 0, stream>>>(
         o, d, npad, tris, ttot, outer_cols, block_mask, slices, dst);
     nr_dense_fold_launch<4>(part, npad, slices, block_mask, out, stream);
   }

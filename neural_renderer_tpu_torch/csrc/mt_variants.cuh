@@ -1,16 +1,54 @@
-// Tile-math variants of Möller–Trumbore for the trace-kernel ablation
-// (ops/trace_ablation.py; scripts/ablate_trace_kernel.py::_mt_tile :47-97
-// and _probe_tile :100 of the reference). Each variant is a struct the
-// templated trace loop takes (csrc/ablate_trace.cu; the sweep variants,
-// csrc/ablate_sweep.cu, take their pair math from here too):
+// The tile maths of the trace-kernel ablation (ops/trace_ablation.py;
+// scripts/ablate_trace_kernel.py::_mt_tile :47-97 and _probe_tile :100 of
+// the reference), shared by its two FP32 dense kernels: the closest hit
+// (csrc/ablate_trace.cu) and the dual-shell sweep (csrc/ablate_sweep.cu).
+// Both run K3's and K4's walk (csrc/mt_dense.cuh), so each variant but the
+// probe is a tile math of that walk (the contract above df_walk): its pair
+// math and a prefilter rule in its own operations and precision on the
+// det, u·det and v·det that math computes, which rejects only pairs the
+// math certainly rejects. So every output equals the unfiltered loop's bit
+// for bit (ops/trace_ablation.py::variant_rule is each rule on the CPU,
+// held against the variants' twins by tests/test_torch_ablate_prefilter.py).
+// The rules are about one pair's values, so they hold for any fold that a
+// rejected pair's t (the variant's miss value) leaves unchanged: the
+// sweep's mins and strict pair, and the trace's closest hit, whose
+// accumulator starts at that miss value and takes only a strictly smaller
+// t. With a = |det| and w = num sgn(det) for num = u·det or v·det:
 //
-//   RayState         what a thread keeps of its ray;
-//   ray(NrRay)       builds it once per ray;
-//   pair2(...)       t and det of the ray against tile columns q and q+1,
-//                    t = kMiss where the pair is rejected (every cull but
-//                    facing); det's sign carries the facing;
-//   kMiss            the miss value (bf16's 1e30 in MtBf16);
-//   kProbe           true for the op-rate probe, which has no hit.
+//   local, recip (DfMt, DfRecip): 1/det by an IEEE divide and by
+//     __frcp_rn, the same value: mt_dense.cuh's rule and its proof
+//     (margins 2^-20).
+//   recipx (DfRecipx): 1/det by rcp.approx.ftz.f32: within 1 ulp (2^-23
+//     relative) of 1/det where that is a normal f32 (PTX ISA), and 0 where
+//     it is subnormal (|det| > 2^126), where t = t·det x 0 fails t > 1e-8
+//     and the pair is rejected whatever the rule says. The rule rejects w <
+//     a (-2^-18) or w >= rn(a (1 + 2^-18)), which covers a reciprocal
+//     within 2^-19 of 1/det (16 ulps of 2^-23): for the first, |u| >=
+//     2^-18 (1 - 2^-19)(1 - 2^-24), so u < 0; for the second, u·det / det
+//     >= (1 + 2^-18)(1 - 2^-24), times (1 - 2^-19) above 1 + 2^-24, so u
+//     rounds above 1 (and v > 1 with u >= 0 gives u + v > 1). The proof
+//     is about u and v of one pair, so it holds in the trace as in the
+//     sweep: both fold the t that nr_mt_t<NR_RCP_APPROX> gives.
+//   nodiv (DfNodiv): its culls compare w with 0 and a themselves (us =
+//     u·det s with s = sgn(det), exact), so the rule is those compares and
+//     needs no margin: w < 0 or w > a rejects (v > a with us >= 0 gives
+//     rn(us + vs) >= vs > a). No bound multiply.
+//   bf16 (DfBf16): det, u·det and v·det are the packed bf16 values of its
+//     operations (widened exactly to f32); 1/det is rn_bf16(rn_f32(1 /
+//     det)), within 2^-5 of 1/det (2^-8 + 2^-24 where it is normal;
+//     2^-134 + 2^-150 absolute, at least 2^-128 being subnormal). The rule
+//     rejects w < a (-2^-20): u rounds from a product of magnitude above
+//     2^-20 (1 - 2^-5) (1 - 2^-24) > 2^-134, so u < 0; or w >= rn(a (1 +
+//     2^-4)): the product is at least 1.0625 (1 - 2^-24)(1 - 2^-5) > 1.029,
+//     which rounds to at least 1.0234 in bf16, so u > 1. Its miss value is
+//     bf16(1e30) widened, NR_BF16_MISS, not 1e30.
+//
+// Padding (a = 0, u·det = v·det = 0) is rejected by every rule; |det| below
+// 1e-8 may be rejected freely (every variant culls it); NaN fails every
+// compare and is left to the pair math.
+//
+// The probe (MtProbe) has no hit for a rule to cut: it keeps its own loop
+// in csrc/ablate_trace.cu.
 //
 // Built with -fmad=false (ops/cuda_build.py): no product is fused into an
 // add, so every variant rounds op by op like its PyTorch twin.
@@ -18,11 +56,7 @@
 
 #include <cuda_bf16.h>
 
-#include "mt.cuh"
-
-struct NrRay {
-  float ox, oy, oz, dx, dy, dz;
-};
+#include "mt_dense.cuh"
 
 // bf16(1e30), bf16(1e-8) and bf16(1e-6) widened to f32: the reference's
 // constants under JAX's weak typing in the bf16 variant.
@@ -30,74 +64,78 @@ struct NrRay {
 #define NR_BF16_EPS 1.00117177e-8f
 #define NR_BF16_MIN_T 9.983778e-7f
 
-// Scalar variants evaluate one pair at a time; pair2 runs columns q, q+1.
-template <class Derived>
-struct NrScalarMath {
-  using RayState = NrRay;
-  static constexpr bool kProbe = false;
-  static constexpr float kMiss = NR_MISS;
-  __device__ __forceinline__ static NrRay ray(const NrRay& r) { return r; }
-  template <int W>
-  __device__ __forceinline__ static void pair2(const NrRay& r,
-                                               const float (*tile)[W], int q,
-                                               float t[2], float det[2]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      t[i] = Derived::pair(r, tile[0][q + i], tile[1][q + i], tile[2][q + i],
-                           tile[3][q + i], tile[4][q + i], tile[5][q + i],
-                           tile[6][q + i], tile[7][q + i], tile[8][q + i],
-                           &det[i]);
-    }
+#define DF_RCPX_LO (-3.814697265625e-06f)     // -2^-18
+#define DF_RCPX_HI 1.000003814697265625f      // 1 + 2^-18
+#define DF_BF16_HI 1.0625f                    // 1 + 2^-4
+
+// recip: local's values, local's rule.
+using DfRecip = DfMtRcp<NR_RCP_RN>;
+
+struct DfRecipx : DfScalar<DfRecipx> {
+  __device__ __forceinline__ static void bounds(DfPair& p) {
+    p.lo = fabsf(p.det) * DF_RCPX_LO;
+    p.hi = fabsf(p.det) * DF_RCPX_HI;
+  }
+  __device__ __forceinline__ static bool out(float w, const DfPair& p) {
+    return (w < p.lo) | (w >= p.hi);
+  }
+  __device__ __forceinline__ static float pair(const DfRays& r, int i,
+                                               const float4& a,
+                                               const float4& b,
+                                               const float4& c, float* det) {
+    return nr_mt_t<NR_RCP_APPROX>(r.ox[i], r.oy[i], r.oz[i], r.dx[i],
+                                  r.dy[i], r.dz[i], a.x, a.y, a.z, a.w, b.x,
+                                  b.y, b.z, b.w, c.x, det);
   }
 };
 
-// local: the production math, nr_mt_t itself; recip and recipx take 1/det
-// by __frcp_rn (the value of 1.0f/det) and by rcp.approx.ftz.f32.
-template <int kRcp>
-struct MtRcp : NrScalarMath<MtRcp<kRcp>> {
-  __device__ __forceinline__ static float pair(
-      const NrRay& r, float v0x, float v0y, float v0z, float e1x, float e1y,
-      float e1z, float e2x, float e2y, float e2z, float* det) {
-    return nr_mt_t<kRcp>(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, v0x, v0y, v0z,
-                         e1x, e1y, e1z, e2x, e2y, e2z, det);
-  }
-};
-using MtLocal = MtRcp<NR_RCP_DIV>;
-using MtRecip = MtRcp<NR_RCP_RN>;
-using MtRecipx = MtRcp<NR_RCP_APPROX>;
+// nodiv's pair math: the barycentric culls compare u_num and v_num, times
+// det's sign, with |det| (_mt_tile :73-85); one IEEE divide gives t.
+__device__ __forceinline__ float nr_nodiv_t(
+    float ox, float oy, float oz, float dx, float dy, float dz, float v0x,
+    float v0y, float v0z, float e1x, float e1y, float e1z, float e2x,
+    float e2y, float e2z, float* det_out) {
+  float px = dy * e2z - dz * e2y;
+  float py = dz * e2x - dx * e2z;
+  float pz = dx * e2y - dy * e2x;
+  float det = e1x * px + e1y * py + e1z * pz;
+  *det_out = det;
+  float tx = ox - v0x;
+  float ty = oy - v0y;
+  float tz = oz - v0z;
+  float u_num = tx * px + ty * py + tz * pz;
+  float qx = ty * e1z - tz * e1y;
+  float qy = tz * e1x - tx * e1z;
+  float qz = tx * e1y - ty * e1x;
+  float v_num = dx * qx + dy * qy + dz * qz;
+  float t_num = e2x * qx + e2y * qy + e2z * qz;
+  bool ok = fabsf(det) >= NR_TRI_EPS;
+  const float s = det < 0.0f ? -1.0f : 1.0f;
+  const float ad = fabsf(det);
+  const float us = u_num * s;
+  const float vs = v_num * s;
+  ok = ok && (us >= 0.0f) && (us <= ad);
+  ok = ok && (vs >= 0.0f) && (us + vs <= ad);
+  const float ts = t_num * s;
+  ok = ok && (ts > NR_TRI_EPS * ad);
+  const float t = ts / ad;
+  ok = ok && (t > NR_TRI_EPS) && (t > NR_MIN_T);
+  return ok ? t : NR_MISS;
+}
 
-// nodiv: the barycentric culls compare u_num and v_num, times det's sign,
-// with |det| (_mt_tile :73-85); one IEEE divide gives t.
-struct MtNodiv : NrScalarMath<MtNodiv> {
-  __device__ __forceinline__ static float pair(
-      const NrRay& r, float v0x, float v0y, float v0z, float e1x, float e1y,
-      float e1z, float e2x, float e2y, float e2z, float* det_out) {
-    float px = r.dy * e2z - r.dz * e2y;
-    float py = r.dz * e2x - r.dx * e2z;
-    float pz = r.dx * e2y - r.dy * e2x;
-    float det = e1x * px + e1y * py + e1z * pz;
-    *det_out = det;
-    float tx = r.ox - v0x;
-    float ty = r.oy - v0y;
-    float tz = r.oz - v0z;
-    float u_num = tx * px + ty * py + tz * pz;
-    float qx = ty * e1z - tz * e1y;
-    float qy = tz * e1x - tx * e1z;
-    float qz = tx * e1y - ty * e1x;
-    float v_num = r.dx * qx + r.dy * qy + r.dz * qz;
-    float t_num = e2x * qx + e2y * qy + e2z * qz;
-    bool ok = fabsf(det) >= NR_TRI_EPS;
-    const float s = det < 0.0f ? -1.0f : 1.0f;
-    const float ad = fabsf(det);
-    const float us = u_num * s;
-    const float vs = v_num * s;
-    ok = ok && (us >= 0.0f) && (us <= ad);
-    ok = ok && (vs >= 0.0f) && (us + vs <= ad);
-    const float ts = t_num * s;
-    ok = ok && (ts > NR_TRI_EPS * ad);
-    const float t = ts / ad;
-    ok = ok && (t > NR_TRI_EPS) && (t > NR_MIN_T);
-    return ok ? t : NR_MISS;
+struct DfNodiv : DfScalar<DfNodiv> {
+  __device__ __forceinline__ static void bounds(DfPair& p) {
+    p.hi = fabsf(p.det);
+  }
+  __device__ __forceinline__ static bool out(float w, const DfPair& p) {
+    return (w < 0.0f) | (w > p.hi);
+  }
+  __device__ __forceinline__ static float pair(const DfRays& r, int i,
+                                               const float4& a,
+                                               const float4& b,
+                                               const float4& c, float* det) {
+    return nr_nodiv_t(r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i],
+                      a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, det);
   }
 };
 
@@ -123,27 +161,41 @@ NR_BF16X2_OP(nr_bsub, "sub")
 #undef NR_BF16X2_OP
 
 // bf16: every operand, constant and intermediate in bf16, on packed
-// __nv_bfloat162: here two triangles per step (low half column q, high half
-// q+1); the sweep variant (csrc/ablate_sweep.cu) packs two rays against one
-// triangle, in the same operations. Products of bf16 values are exact in f32
-// and a sum of two rounds once, so each packed operation (round to nearest
-// even) equals PyTorch's and XLA's bf16 arithmetic (computed in f32,
-// rounded to bf16). 1/det is an IEEE f32 divide rounded once to bf16, as
-// theirs; comparisons run on the exact f32 widenings.
-struct MtBf16 {
-  struct RayState {
+// __nv_bfloat162: the thread's two rays in the halves (low ray 0, high ray
+// 1) against one triangle, whose nine values the chunk's prepare()
+// converts once, in place, to bf16x2 (rn of each f32 value). Products of
+// bf16 values are exact in f32 and a sum of two rounds once, so each packed
+// operation (round to nearest even) equals PyTorch's and XLA's bf16
+// arithmetic (computed in f32, rounded to bf16). 1/det is an IEEE f32
+// divide rounded once to bf16, as theirs; comparisons run on the exact f32
+// widenings.
+struct DfBf16 {
+  static_assert(DF_R == 2, "the thread's two rays fill a bf16x2");
+  static constexpr float kMiss = NR_BF16_MISS;
+  struct Rays {
     __nv_bfloat162 ox, oy, oz, dx, dy, dz;
   };
-  static constexpr bool kProbe = false;
-  static constexpr float kMiss = NR_BF16_MISS;
-  __device__ __forceinline__ static RayState ray(const NrRay& r) {
-    return {__float2bfloat162_rn(r.ox), __float2bfloat162_rn(r.oy),
-            __float2bfloat162_rn(r.oz), __float2bfloat162_rn(r.dx),
-            __float2bfloat162_rn(r.dy), __float2bfloat162_rn(r.dz)};
+  __device__ __forceinline__ static Rays rays(const DfRays& r) {
+    return {__floats2bfloat162_rn(r.ox[0], r.ox[1]),
+            __floats2bfloat162_rn(r.oy[0], r.oy[1]),
+            __floats2bfloat162_rn(r.oz[0], r.oz[1]),
+            __floats2bfloat162_rn(r.dx[0], r.dx[1]),
+            __floats2bfloat162_rn(r.dy[0], r.dy[1]),
+            __floats2bfloat162_rn(r.dz[0], r.dz[1])};
+  }
+  // df_stage<S>'s elements of this thread, each f32 value replaced by its
+  // bf16 in both halves.
+  template <class S>
+  __device__ __forceinline__ static void prepare(float* tile) {
+    for (int e = threadIdx.x; e < 9 * S::kChunk; e += S::kThreads) {
+      const int row = e / S::kChunk;
+      float* x = tile + (e - row * S::kChunk) * DF_TRI_STRIDE + row;
+      *x = __uint_as_float(nr_b2u(__float2bfloat162_rn(*x)));
+    }
   }
   // d x e2 and det, o - v0 and u·det of the triangle v = (v0, e1, e2), in
   // _mt_tile's order.
-  __device__ __forceinline__ static void det_u(const RayState& r,
+  __device__ __forceinline__ static void det_u(const Rays& r,
                                                const __nv_bfloat162 v[9],
                                                __nv_bfloat162 p[3],
                                                __nv_bfloat162 tv[3],
@@ -161,7 +213,7 @@ struct MtBf16 {
                     nr_bmul(tv[2], p[2]));
   }
   // q = (o - v0) x e1 and v·det.
-  __device__ __forceinline__ static void v_num(const RayState& r,
+  __device__ __forceinline__ static void v_num(const Rays& r,
                                                const __nv_bfloat162 v[9],
                                                const __nv_bfloat162 tv[3],
                                                __nv_bfloat162 q[3],
@@ -205,32 +257,63 @@ struct MtBf16 {
       t[i] = ok ? tf[i] : NR_BF16_MISS;
     }
   }
-  template <int W>
-  __device__ __forceinline__ static void pair2(const RayState& r,
-                                               const float (*tile)[W], int q,
-                                               float t[2], float det_out[2]) {
-    __nv_bfloat162 v[9], p[3], tv[3], qv[3], det, u_num, vn;
+  // The rule on a widened packed numerator: true where it keeps the pair
+  // (p: det and the bounds a (-2^-20), rn(a (1 + 2^-4))).
+  __device__ __forceinline__ static bool keep(float num, const DfPair& p) {
+    const float w = df_signed(num, p.det);
+    return !((w < p.lo) | (w >= p.hi));
+  }
+  template <int kMode, class Fold>
+  __device__ __forceinline__ static void triangle(const Rays& r,
+                                                  const float4& a,
+                                                  const float4& b,
+                                                  const float4& c, int id,
+                                                  Fold&& fold) {
+    static_assert(kMode == 0, "the ablation runs ANY");
+    const float x[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+    __nv_bfloat162 v[9], p[3], tv[3], q[3], det, un, vn;
 #pragma unroll
-    for (int k = 0; k < 9; ++k)
-      v[k] = __floats2bfloat162_rn(tile[k][q], tile[k][q + 1]);
-    det_u(r, v, p, tv, det, u_num);
-    v_num(r, v, tv, qv, vn);
-    finish(v, qv, det, u_num, vn, t, det_out);
+    for (int k = 0; k < 9; ++k) v[k] = nr_u2b(__float_as_uint(x[k]));
+    det_u(r, v, p, tv, det, un);
+    DfPair s[2];
+    s[0].det = __low2float(det);
+    s[1].det = __high2float(det);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[i].lo = fabsf(s[i].det) * DF_LO;
+      s[i].hi = fabsf(s[i].det) * DF_BF16_HI;
+    }
+    bool kept[2] = {keep(__low2float(un), s[0]),
+                    keep(__high2float(un), s[1])};
+    if (!__any_sync(0xffffffffu, kept[0] | kept[1])) return;
+    v_num(r, v, tv, q, vn);
+    kept[0] = kept[0] & keep(__low2float(vn), s[0]);
+    kept[1] = kept[1] & keep(__high2float(vn), s[1]);
+    if (!__any_sync(0xffffffffu, kept[0] | kept[1])) return;
+    float t[2], det_out[2];
+    finish(v, q, det, un, vn, t, det_out);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kept[i]) fold(i, id, t[i], det_out[i]);
+    }
   }
 };
 
 // probe: `_probe_tile`'s chain, x = a then x = x * a + b 24 times, with
 // a = ox * v0x and b = dx + v0y: 48 dependent FP32 operations per pair,
-// unfused. The trace loop runs NR_PROBE_CHAINS triangles side by side so
-// that independent chains hide the FP32 latency, and keeps their minimum
-// with fminf (NaN dropped; the twin uses torch.fmin's rule).
+// unfused. csrc/ablate_trace.cu's probe loop runs NR_PROBE_CHAINS
+// triangles side by side so that independent chains hide the FP32
+// latency, and keeps their minimum with fminf (NaN dropped; the twin uses
+// torch.fmin's rule).
 #define NR_PROBE_STEPS 24
 #define NR_PROBE_CHAINS 8
+
+struct NrRay {
+  float ox, oy, oz, dx, dy, dz;
+};
+
 struct MtProbe {
-  using RayState = NrRay;
-  static constexpr bool kProbe = true;
   static constexpr float kMiss = NR_MISS;
-  __device__ __forceinline__ static NrRay ray(const NrRay& r) { return r; }
   template <int W>
   __device__ __forceinline__ static float chains(const NrRay& r,
                                                  const float (*tile)[W],

@@ -24,7 +24,7 @@ extern "C" int sweep_dense_shape(int npad, int ttot, int* slices,
 }
 
 // part: [slices][5 or 4][npad] f32 scratch (unused with one slice). T and
-// outer_cols must be multiples of DF_CHUNK.
+// outer_cols must be multiples of the 64-triangle chunk.
 extern "C" int sweep_dense(const float* o, const float* d, int npad,
                            const float* tris, int ttot, int outer_cols,
                            const int* block_mask, int with_fwd2, int slices,

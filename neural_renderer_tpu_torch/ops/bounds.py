@@ -32,17 +32,17 @@ zero, and so do loads. The counts per (ray, triangle) pair:
   test leaves (trace_pallas.prefilter_pairs counts them on the call's
   operands).
   Their bound counts that (dense_seconds), beside the 46 per pair.
-  `nodiv` (mt_variants.cuh::MtNodiv): the same 41 before the culls, then
+  `nodiv` (mt_variants.cuh::nr_nodiv_t): the same 41 before the culls, then
   u_num s, v_num s, t_num s 3, u + v 1, eps |det| 1, t = ts / |det| 1 = 47.
   `probe` (mt_variants.cuh::MtProbe): a = o v0 1, b = d + v0 1, 24
   multiplies and 24 adds = 50.
-  `bf16` (mt_variants.cuh::MtBf16): `local`'s 45 without the divide, in
+  `bf16` (mt_variants.cuh::DfBf16): `local`'s 45 without the divide, in
   packed bf16 at two per lane per clock, plus the f32 divide and its two
   conversions (det to f32, 1/det to bf16) at the FP32 rate.
-  The ablation's sweep variants run K4's walk, each behind its own rule
-  (csrc/ablate_sweep.cu; trace_ablation.variant_rule); their filtered
-  bound counts each test as DENSE_* do (PREFILTER_OPS): `recip` and
-  `recipx` as `local`; `nodiv` 14, 8 (its rule compares w with 0 and
+  The ablation's trace and sweep variants run K3's and K4's walk, each
+  behind its own rule (csrc/mt_variants.cuh; trace_ablation.variant_rule);
+  their filtered bound counts each test as DENSE_* do (PREFILTER_OPS):
+  `local` as K3, `recip` and `recipx` as `local`; `nodiv` 14, 8 (its rule compares w with 0 and
   |det|: no bound multiply), 14 and 47 - 36 = 11; `bf16` in packed bf16
   14, 8, 14 and 9, and at the FP32 rate the u test's 2 bound multiplies
   and the widenings of det and u·det, the v test's widening of v·det, and

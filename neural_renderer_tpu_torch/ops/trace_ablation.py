@@ -22,21 +22,28 @@ chain's minimum and id 0. Minimum rule for the probe: NaN is dropped
 (`fminf`, `torch.fmin`), where `jnp.minimum` keeps it; the probe's inputs
 never make one.
 
-Kernel `csrc/ablate_trace.cu` replaces `trace_variant`: K3's skeleton (one
-thread per ray, triangle tiles staged in shared memory, a strict `<` over
-increasing ids), templated over (tile math, block, tile) with every
-combination the script names instantiated in one library. Bound on the
-card (`ops/bounds.py`): FP32 operations, 46 per pair (47 for `nodiv`, 50
-for the probe), at the rate of unfused FP32 instructions; `bf16` at the
-packed rate, two per lane per clock, but for its f32 divide.
+Kernel `csrc/ablate_trace.cu` replaces `trace_variant`: K3's walk
+(`csrc/mt_dense.cuh`, so `local` is the production trace K3), templated
+over the tile math and its shape, each tile math behind its prefilter rule
+(`variant_rule`; `local` and `recip` K3's), the thread's two rays folded
+into the closest hit by a strict `<` over increasing ids, triangle slices
+merged per ray. The reference's block and tile become the CTA's rays and
+the staged chunk's triangles, tile / 2 (`walk_shape`): `local`'s (512,
+128) is K3's launch. The probe keeps its own loop (one thread per ray,
+tiles staged in shared memory). Every combination the script names is
+instantiated in one library. Bound on the card (`ops/bounds.py`): FP32
+operations, 46 per pair (47 for `nodiv`, 50 for the probe), at the rate of
+unfused FP32 instructions; `bf16` at the packed rate, two per lane per
+clock, but for its f32 divide; filtered, the rule's operations on every
+pair and the rest of the math on the pairs it leaves.
 
 The sweep family (`run_sweep_family` :182) re-traces the dense dual-shell
 sweep K4 with its tile math replaced: `csrc/ablate_sweep.cu` runs K4's walk
-(`csrc/mt_dense.cuh`) with `nodiv`, `recip`, `recipx` and `bf16`, each
-behind a prefilter rule of its own (`variant_rule`); the twin is
+with `nodiv`, `recip`, `recipx` and `bf16` and their rules (the tile maths
+of both kernels: `csrc/mt_variants.cuh`); the twin is
 `trace_pallas.sweep_shells_dense_twin` with the variant's pairs
 (`variant_pairs`; with `prefilter=True` the pairs the rule leaves, the
-kernel's walk on the CPU).
+kernel's walk on the CPU, as `trace_variant_twin(..., prefilter=True)`).
 
 `mxu_hi3` and `mxu_lo` are K8's matrix formulation with the dots at
 `Precision.HIGH` and `DEFAULT` (:361-395). On the TPU these are bf16_3x
@@ -87,12 +94,13 @@ PROBE_CHAIN = 48      # the probe's chain of multiplies and adds, per pair
 # The bf16 matrix kernels' rule: |rn(2 num - det)| at least rn(|det| (1 +
 # 2^-19)) rejects the pair (csrc/ablate_mxu_bf16.cu argues it).
 MXU_BF16_H = 1.0 + 2.0 ** -19
-# The prefilter rules of the sweep kernels (csrc/ablate_sweep.cu; `recip`
-# takes K4's, csrc/mt_dense.cuh): a numerator w = num sgn(det) below |det|
-# lo or at least |det| hi rejects the pair. `nodiv`'s rule is its own
-# culls, w < 0 or w > |det| (no margin). Each margin is proven in the
-# kernel's source for its division.
+# The prefilter rules of the walk kernels (csrc/mt_variants.cuh; `local`
+# and `recip` take K3's and K4's, csrc/mt_dense.cuh): a numerator w = num
+# sgn(det) below |det| lo or at least |det| hi rejects the pair. `nodiv`'s
+# rule is its own culls, w < 0 or w > |det| (no margin). Each margin is
+# proven in the kernels' source for its division.
 RULE_MARGINS = {
+    "local": (trace_pallas.DENSE_LO, trace_pallas.DENSE_HI),
     "recip": (trace_pallas.DENSE_LO, trace_pallas.DENSE_HI),
     "recipx": (-2.0 ** -18, 1.0 + 2.0 ** -18),
     "bf16": (-2.0 ** -20, 1.0 + 2.0 ** -4),
@@ -167,12 +175,12 @@ def _probe(o, d, tb):
 
 
 def variant_rule(variant: str, det, u_num, v_num):
-    """The prefilter rule of `variant`'s sweep kernel on the CPU
-    (csrc/ablate_sweep.cu, where each is argued) on a pair's det, u·det and
+    """The prefilter rule of `variant`'s walk kernels on the CPU
+    (csrc/mt_variants.cuh, where each is argued) on a pair's det, u·det and
     v·det as its pair math computes them (f32, or bf16 for `bf16`, widened
     exactly): (facing, keep_u, keep_v) as `trace_pallas.dense_rule`'s,
     False where the u test, then the v test leave a pair that the variant
-    certainly rejects (facing: every pair, the sweeps run ANY)."""
+    certainly rejects (facing: every pair, the ablation runs ANY)."""
     if variant not in RULE_MARGINS and variant != "nodiv":
         raise ValueError(f"no prefilter rule for {variant!r}")
     det, u_num, v_num = (x.float() for x in (det, u_num, v_num))
@@ -197,7 +205,7 @@ def variant_prefilter(o, d, tb, variant: str, mode: int = 0):
     d [3, ...] against triangles tb [9, ...], broadcasting as
     `trace_pallas.dense_prefilter` (whose contract it has; ANY only)."""
     if mode != 0:
-        raise ValueError("the sweep variants' rules are for ANY")
+        raise ValueError("the ablation's rules are for ANY")
     if variant == "bf16":
         o, d, tb = (x.to(torch.bfloat16) for x in (o, d, tb))
     det, u_num, tvec = trace_pallas._mt_det_u(o, d, tb)
@@ -253,14 +261,29 @@ def _closest_hit(origins, dirs, tris_packed, tile: int, pairs, miss: float):
     return torch.stack([best_t, best_tri.view(torch.float32)], dim=0)
 
 
+def walk_shape(block: int, tile: int) -> tuple[int, int, int]:
+    """(rays a CTA, triangles a staged chunk, CTAs an SM a one-slice launch
+    reaches) of csrc/ablate_trace.cu's walk at the reference's (block,
+    tile): block rays, tile / 2 triangles, slices until the launch holds
+    the rays an SM of K3's (16 CTAs of 512; `local`'s (512, 128) is K3's
+    launch). The library's `ablate_trace_shape` takes the slice count from
+    these (csrc/dense_slices.cuh::nr_dense_slices)."""
+    return block, tile // 2, 16 * 512 // block
+
+
 def trace_variant_twin(origins, dirs, tris_packed, variant: str,
-                       tile: int):
+                       tile: int, prefilter: bool = False):
     """Plain-PyTorch twin of `trace_variant` (the kernel's block shapes
-    only its grid)."""
+    only its grid). With `prefilter`, the pairs the variant's rule rejects
+    miss without the rest of its math deciding: the kernel's walk on the
+    CPU, which equals the unfiltered twin where the rule is sound (the
+    probe has no rule)."""
     if variant != "probe":
         miss = BF16_MISS if variant == "bf16" else MISS
         return _closest_hit(origins, dirs, tris_packed, tile,
-                            variant_pairs(variant), miss)
+                            variant_pairs(variant, prefilter), miss)
+    if prefilter:
+        raise ValueError("the probe has no prefilter rule")
     n = origins.shape[1]
     best = torch.full((n,), MISS, dtype=torch.float32, device=origins.device)
     for c in range(0, tris_packed.shape[1], tile):
@@ -283,7 +306,8 @@ def trace_variant(origins, dirs, tris_packed, variant: str, block: int,
     """origins/dirs [3, N] f32, tris_packed [9, T] f32 (N a multiple of
     `block`, T of `tile`) -> [2, N] f32, see the module docstring. The
     (variant, block, tile) must be one of TRACE_COMBOS'. CPU tensors run
-    the twin; CUDA tensors launch csrc/ablate_trace.cu."""
+    the twin; CUDA tensors launch csrc/ablate_trace.cu (the walk's slices
+    sized by the library, `trace_pallas.dense_scratch`)."""
     if (variant, block, tile) not in TRACE_COMBOS.values():
         raise ValueError(f"no kernel for variant {variant!r} at block "
                          f"{block}, tile {tile}")
@@ -293,15 +317,20 @@ def trace_variant(origins, dirs, tris_packed, variant: str, block: int,
     cuda_build.check_operands("ablate_trace", (
         ("origins", origins, torch.float32), ("dirs", dirs, torch.float32),
         ("tris_packed", tris_packed, torch.float32)))
-    n = origins.shape[1]
-    lib = cuda_build.load("ablate_trace")
+    n, ttot = origins.shape[1], tris_packed.shape[1]
+    if variant == "probe":       # its own loop: no slices
+        lib, slices = cuda_build.load("ablate_trace"), 1
+        part = torch.empty(0, device=origins.device)
+    else:
+        lib, slices, _, part = trace_pallas.dense_scratch(
+            "ablate_trace", origins, ttot, 2, shape=(block, tile))
     out = torch.empty((2, n), dtype=torch.float32, device=origins.device)
     p = cuda_build.ptr
     rc = lib.ablate_trace(
         ctypes.c_int(VARIANT_CODES[variant]), ctypes.c_int(block),
         ctypes.c_int(tile), p(origins), p(dirs), ctypes.c_int(n),
-        p(tris_packed), ctypes.c_int(tris_packed.shape[1]), p(out),
-        cuda_build.stream_of(origins))
+        p(tris_packed), ctypes.c_int(ttot), ctypes.c_int(slices), p(part),
+        p(out), cuda_build.stream_of(origins))
     cuda_build.check(lib, rc, "ablate_trace")
     trace_variant.launches[f"{variant}/{block}/{tile}"] += 1
     return out

@@ -231,18 +231,21 @@ def prefilter_pairs(origins, dirs, tris_packed, block_mask, mode: int = 0,
     return tuple(left)
 
 
-def dense_scratch(name: str, origins, ttot: int, rows: int):
+def dense_scratch(name: str, origins, ttot: int, rows: int,
+                  shape: tuple[int, ...] = ()):
     """(library, slices, feature scratch, partial rows) of a launch of the
     dense library `name` (trace_dense, sweep_dense, trace_dense_mxu,
-    sweep_dense_mxu; the ablation's ablate_sweep, ablate_mxu_bf16), as the
-    library's own `<name>_shape` sizes it
+    sweep_dense_mxu; the ablation's ablate_trace, ablate_sweep,
+    ablate_mxu_bf16), as the library's own `<name>_shape` sizes it
     (csrc/dense_slices.cuh::nr_dense_slices; the FP32 kernels need no
-    feature scratch)."""
+    feature scratch). `shape`: ints the entry takes before the ray count
+    (ablate_trace's block and tile)."""
     lib = cuda_build.load(name)
     npad = origins.shape[1]
     slices, feat_doubles = ctypes.c_int(), ctypes.c_longlong()
     rc = getattr(lib, name + "_shape")(
-        ctypes.c_int(npad), ctypes.c_int(ttot), ctypes.byref(slices),
+        *(ctypes.c_int(x) for x in shape), ctypes.c_int(npad),
+        ctypes.c_int(ttot), ctypes.byref(slices),
         ctypes.byref(feat_doubles))
     cuda_build.check(lib, rc, name + "_shape")
     feat = torch.empty(feat_doubles.value, dtype=torch.float64,

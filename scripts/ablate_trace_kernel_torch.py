@@ -8,13 +8,16 @@ closest-hit trace (neural_renderer_tpu_torch/ops/trace_ablation.py):
   current      the production dense trace (csrc/trace_dense.cu)
   probe        a chain of 48 unfused FP32 operations per pair, same shapes:
                the attainable op rate
-  local        the production math in the ablation's kernel (must match)
+  local        the production trace's walk (K3's, at K3's launch) in the
+               ablation's kernel (must match current)
   recip        1/det as a correctly rounded reciprocal
   recipx       1/det as the approximate reciprocal (rcp.approx.ftz.f32)
   nodiv        sign-trick culls, one divide for t only
   bf16         all Möller–Trumbore math in packed bf16
   b256/b1024   256 / 1024 rays per block; t256/t512/t1024 triangle tiles,
                and b256t256, t256probe, t256nodiv, b1024t512, t512probe
+               (the port's block is the CTA's rays, its tile twice the
+               staged chunk's triangles: trace_ablation.walk_shape)
   mxu_hi / mxu_hi3 / mxu_lo   the matrix formulation: K8 as the frame runs
                it (FP64 products) / with the TPU's bf16_3x products / with
                one bf16 pass
@@ -31,10 +34,11 @@ reps, best of 3. Each time is taken with CUDA events over `reps` launches
 back to back. Beside it: the bound (the least time the card could take:
 the variant's operations over the card's peak rate for their type, see
 ops/bounds.py), hitmm and terr against `current`, and for the sweep family
-maxdiff against `sweep`. The kernels behind a prefilter (the sweep rows
-but `sweep_mxu`, which counts its epilogue's pairs, and mxu_hi3, mxu_lo)
-print the bound on the pairs the prefilter leaves, the bound on every
-pair ("per pair") and the share of pairs the rule leaves ("survivors").
+maxdiff against `sweep`. The kernels behind a prefilter (`current` and
+the trace variants on its walk, every one but the probes; the sweep rows
+but `sweep_mxu`, which counts its epilogue's pairs; mxu_hi3, mxu_lo) print
+the bound on the pairs the prefilter leaves, the bound on every pair ("per
+pair") and the share of pairs the rule leaves ("survivors").
 Needs a CUDA device; runs every variant named and exits 1 if any failed.
 """
 
@@ -70,6 +74,14 @@ def card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+def on_walk(label: str) -> bool:
+    """Whether trace variant `label` runs K3's prefiltered walk: `current`
+    (K3 itself) and the K9 kernels but the probes."""
+    return label == "current" or (
+        label in trace_ablation.TRACE_COMBOS
+        and trace_ablation.TRACE_COMBOS[label][0] != "probe")
+
+
 def tile_math(label: str) -> str:
     """The tile math of variant `label`: the sweep family's follows
     "sweep_"; the production trace and sweeps (current, sweep, sweep_nof2)
@@ -87,9 +99,9 @@ def bound_ms(label: str, pairs: int, converted: int | None = None,
     and, for the FP64 ones (K8, K4-MXU), the conversions of the `converted`
     pairs their prefilter leaves to the epilogue (for the bf16 ones, with
     `converted` None, the epilogue on every pair). `left`: the pairs a
-    sweep row's prefilter leaves (its facing, u and v tests), counted as
-    bounds.dense_seconds does; None counts every pair at the variant's
-    operations."""
+    walk variant's or a sweep row's prefilter leaves (its facing, u and v
+    tests), counted as bounds.dense_seconds does; None counts every pair
+    at the variant's operations."""
     if label in ("mxu_hi", "sweep_mxu"):
         s = bounds.mxu_seconds(pairs, converted=converted)
     elif label in trace_ablation.MXU_BF16_PASSES:
@@ -227,6 +239,9 @@ def run_trace_family(variants, num_tris: int, n: int, reps: int, device):
           f"{reps} reps", flush=True)
     ref = trace_fn("current", origins, dirs, tris)[0](origins)[0]
     ref_hit = ref < trace_pallas.MISS
+    ones = torch.ones(n // trace_pallas.BLOCK_RAYS, dtype=torch.int32,
+                      device=device)
+    lefts = {}     # the pairs each tile math's rule leaves, counted once
     results = {}
     for label in variants:
         try:
@@ -249,20 +264,26 @@ def run_trace_family(variants, num_tris: int, n: int, reps: int, device):
         converted = None
         tp = padded(tris, trace_pallas.TRI_TILE)
         if label == "mxu_hi":
-            ones = torch.ones(n // trace_pallas.BLOCK_RAYS, dtype=torch.int32,
-                              device=device)
             converted = trace_mxu.epilogue_pairs(origins, dirs, tp, ones, 0)
         elif label in trace_ablation.MXU_BF16_PASSES:
             converted = trace_ablation.mxu_bf16_epilogue_pairs(
                 origins, dirs, tp, trace_ablation.MXU_BF16_PASSES[label])
-        res = dict(ms=ms, bound_ms=bound_ms(label, pairs, converted),
+        left = None
+        if on_walk(label):
+            math = tile_math(label)
+            if math not in lefts:
+                lefts[math] = trace_ablation.variant_prefilter_pairs(
+                    origins, dirs, tris, ones, math)
+            left = lefts[math]
+        res = dict(ms=ms, bound_ms=bound_ms(label, pairs, converted, left),
                    out=out)
         line = (f"{label:8s}: {ms:7.3f} ms/call  {ms * 1e9 / pairs:6.2f} "
                 f"ps/pair  {n / ms / 1e3:7.2f} Mrays/s   hitmm {mm:.1e} terr "
                 f"{terr:.1e}   bound {res['bound_ms']:.3f} ms")
-        if label in trace_ablation.MXU_BF16_PASSES:
+        if left is not None or label in trace_ablation.MXU_BF16_PASSES:
             res.update(pair_bound_ms=bound_ms(label, pairs),
-                       survivors=converted / pairs)
+                       survivors=(converted if left is None else left[2])
+                       / pairs)
             line += (f" (per pair {res['pair_bound_ms']:.3f} ms, survivors "
                      f"{res['survivors']:.3e})")
         print(line, flush=True)

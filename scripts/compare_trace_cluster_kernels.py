@@ -8,13 +8,18 @@ tcnn-layout fused MLP (K7).
         [--k9-against JSON]
 
 With --k7 only the K7 cases run. With --k9 only the K9 cases run: the
-ablation's bf16 matrix form (mxu_hi3, mxu_lo, on its 262,144 rays x 9,216
-triangles) and sweep variants (sweep_nodiv, sweep_recip, sweep_recipx,
-sweep_bf16, on its 262,144 camera rays x 2,304 + 2,304 triangles), each
-timed as below with the sha256 of its output's bytes. --k9-against names
-a file whose last line is an earlier --k9 run's (another tree's, on the
-same card): the run then reports which outputs equal that run's bit for
-bit and exits 1 unless mxu_hi3's and mxu_lo's do.
+ablation's closest-hit variants but the probes (local, recip, recipx,
+nodiv, bf16 and the eight block and tile rows, K9_WALK) and its bf16
+matrix form (mxu_hi3, mxu_lo), on its 262,144 rays x 9,216 triangles,
+with the production K3 there (`current`); its sweep variants
+(sweep_nodiv, sweep_recip, sweep_recipx, sweep_bf16) on its 262,144
+camera rays x 2,304 + 2,304 triangles, with the production K4 there
+(`sweep`); each timed as below with the sha256 of its output's bytes.
+Under "build", the registers and spills ptxas reported for the dense FP32
+libraries if this run compiled them. --k9-against names a file whose last
+line is an earlier --k9 run's (another tree's, on the same card): the run
+then reports which outputs equal that run's bit for bit and exits 1
+unless all of them do.
 
 Imports neural_renderer_tpu_torch from TREE (default: this checkout), so
 two versions compare on one card by running it on each in turns: this
@@ -100,8 +105,11 @@ import sys
 SLICE = 131072
 
 
+K9_WALK = ("local", "recip", "recipx", "nodiv", "bf16", "b256", "b1024",
+           "t256", "t512", "b256t256", "t256nodiv", "t1024", "b1024t512")
 K9_MATRIX = ("mxu_hi3", "mxu_lo")
 K9_SWEEPS = ("sweep_nodiv", "sweep_recip", "sweep_recipx", "sweep_bf16")
+K9_LABELS = ("current",) + K9_WALK + K9_MATRIX + ("sweep",) + K9_SWEEPS
 
 
 def main() -> int:
@@ -236,10 +244,10 @@ def main() -> int:
             with open(against) as f:
                 ref = json.loads(f.read().strip().splitlines()[-1])
             out["equal_to"] = ref["tree"]
-            for label in K9_MATRIX + K9_SWEEPS:
+            for label in K9_LABELS:
                 out[label]["equal"] = (out[label]["sha256"]
                                        == ref[label]["sha256"])
-            rc = 0 if all(out[k]["equal"] for k in K9_MATRIX) else 1
+            rc = 0 if all(out[k]["equal"] for k in K9_LABELS) else 1
         print(json.dumps(out), flush=True)
         return rc
     out.update(k7_cases(torch, dev, times, here))
@@ -463,20 +471,25 @@ def k7_cases(torch, dev, times, here):
 
 
 def k9_cases(torch, times, here):
-    """The K9 cases of the module docstring: {label: {"sha256", times}}, on
-    the ablation's workloads (this checkout's
+    """The K9 cases of the module docstring: {label: {"sha256", times}}
+    and "build", on the ablation's workloads (this checkout's
     scripts/ablate_trace_kernel_torch.py, whichever tree's package runs)."""
     import hashlib
+    from neural_renderer_tpu_torch.ops import cuda_build
     sys.path.insert(0, os.path.join(here, "scripts"))
     import ablate_trace_kernel_torch as ablate
+    built = cuda_build.build(["trace_dense", "sweep_dense", "ablate_trace",
+                              "ablate_sweep"])
+    res = {"build": {name: [ln.strip() for ln in info["log"].splitlines()
+                            if "registers" in ln or "spill" in ln]
+                     for name, info in built.items()}}
     o, d, tris = ablate.trace_workload(9216, 262144, "cuda")
     so, sd, stris, cols = ablate.sweep_workload(262144, "cuda")
-    res = {}
-    for label in K9_MATRIX + K9_SWEEPS:
-        if label in K9_MATRIX:
-            fn, x = ablate.trace_fn(label, o, d, tris)[0], o
-        else:
+    for label in K9_LABELS:
+        if label == "sweep" or label in K9_SWEEPS:
             fn, x = ablate.sweep_fn(label, so, sd, stris, cols), so
+        else:
+            fn, x = ablate.trace_fn(label, o, d, tris)[0], o
         out = fn(x).cpu().numpy()
         res[label] = {"sha256": hashlib.sha256(out.tobytes()).hexdigest(),
                       **times(lambda: fn(x))}

@@ -939,7 +939,9 @@ def _ablation_workload(device, n=4096):
 
 @pytest.mark.parametrize("label", list(trace_ablation.TRACE_COMBOS))
 def test_ablation_trace_kernel_matches_twin(cuda, label):
-    """Each K9 kernel against its twin; `local` against K3 too."""
+    """Each K9 kernel against its twin (on 4,096 rays, many triangle
+    slices for the variants on K3's walk); `local`, the block and tile
+    rows and `recip` against K3 too."""
     var, block, tile = trace_ablation.TRACE_COMBOS[label]
     o, d, tris = _ablation_workload(cuda)
     key = f"{var}/{block}/{tile}"
@@ -953,11 +955,73 @@ def test_ablation_trace_kernel_matches_twin(cuda, label):
               ker[1].view(torch.int32), twin[1].view(torch.int32))
     else:
         assert torch.equal(ker, twin)
-    if var == "local":
+    if var in ("local", "recip"):
         ones = torch.ones(o.shape[1] // 512, dtype=torch.int32, device=cuda)
         k3 = trace_pallas.trace_dense(o, d, tris, traversal.ANY, ones,
                                       mxu=False)
         assert torch.equal(ker, k3)
+
+
+K9_WALK = [label for label, (var, _, _) in trace_ablation.TRACE_COMBOS.items()
+           if var != "probe"]
+
+
+@pytest.mark.parametrize("label", K9_WALK)
+def test_ablation_trace_launch_shape(cuda, label):
+    """The closest-hit ablation's walk sizes its slices as nr_dense_slices
+    does at its shape (`trace_ablation.walk_shape`: `block`-ray CTAs,
+    tile / 2-triangle chunks, 16 x 512 / block CTAs an SM), with no
+    feature scratch; it refuses a shape outside TRACE_COMBOS."""
+    _, block, tile = trace_ablation.TRACE_COMBOS[label]
+    cta_rays, chunk, per_sm = trace_ablation.walk_shape(block, tile)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for npad in (4096, 262144, 2 ** 21):
+        rays = torch.empty((3, npad), device=cuda)
+        for ttot in (2 * tile, 9216):
+            _, slices, feat, part = trace_pallas.dense_scratch(
+                "ablate_trace", rays, ttot, 2, shape=(block, tile))
+            ctas = max(npad // cta_rays, 1)
+            assert slices == min(-(-sms * per_sm // ctas),
+                                 max(ttot // chunk, 1))
+            assert feat.numel() == 0
+            assert part.shape == ((slices, 2, npad) if slices > 1
+                                  else (0, 2, npad))
+    with pytest.raises(RuntimeError):
+        trace_pallas.dense_scratch("ablate_trace", rays, 9216, 2,
+                                   shape=(block, 64))
+
+
+@pytest.mark.parametrize("label", ["local", "bf16", "b1024t512"])
+def test_ablation_trace_kernel_one_slice(cuda, label):
+    """A launch whose CTAs fill the card alone takes one slice, written
+    without the fold (bf16's misses keep its own miss value): 2^21 rays
+    against a 512-triangle sphere equal the twin (in 2^16-ray calls), and
+    `local` equals K3."""
+    var, block, tile = trace_ablation.TRACE_COMBOS[label]
+    n = 2 ** 21
+    r = np.random.default_rng(9)
+    o = r.normal(size=(n, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = r.normal(size=(n, 3)) * 0.6 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.as_tensor(np.ascontiguousarray(x.T, np.float32),
+                            device=cuda) for x in (o, d))
+    tris = outward_sphere(16, 16, 1.0).to_tensors(cuda).tris_packed
+    assert trace_pallas.dense_scratch("ablate_trace", o, tris.shape[1], 2,
+                                      shape=(block, tile))[1] == 1
+    ker = trace_ablation.trace_variant(o, d, tris, var, block, tile)
+    step = 2 ** 16
+    twin = torch.cat([trace_ablation.trace_variant_twin(
+        o[:, i:i + step], d[:, i:i + step], tris, var, tile)
+        for i in range(0, n, step)], dim=1)
+    miss = trace_ablation.BF16_MISS if var == "bf16" else 1e30
+    assert bool((twin[0] == torch.tensor(miss, device=cuda)).any())
+    assert bool((twin[0] < miss).any())
+    assert torch.equal(ker, twin)
+    if var == "local":
+        ones = torch.ones(n // 512, dtype=torch.int32, device=cuda)
+        assert torch.equal(ker, trace_pallas.trace_dense(
+            o, d, tris, traversal.ANY, ones, mxu=False))
 
 
 @pytest.mark.parametrize("variant", trace_ablation.SWEEP_VARIANTS)
