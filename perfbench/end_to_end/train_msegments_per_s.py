@@ -1,0 +1,6 @@
+"""Trained segments (the batch of every completed step) over the window's
+host-clock seconds, in millions a second."""
+
+
+def read(run):
+    return run.work_per_call * run.calls / run.window_s / 1e6
