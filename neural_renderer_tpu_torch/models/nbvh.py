@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import spans
 from .encoding import (SH_DIM, HashGridConfig, hashgrid_encode_features,
                        init_hashgrid, sh_encode_features)
 from .lane_grid import init_lane_tables, lane_encode_features
@@ -204,20 +205,25 @@ def apply(net: ShellNetwork, inputs, active=None):
     lane-grid kernel, where `active` ([N] bool) lets 128-ray blocks without
     an active ray output zeros (callers mask those lanes, as the shell march
     does). tcnn networks: hash-grid encode + the fused MLP kernel, ENC_CHUNK
-    segments at a time; `active` is ignored, as on the JAX XLA path."""
-    if net.config.grid_type == "lane":
-        from ..ops.lane_grid_kernel import forward_lane
-        return forward_lane(net, inputs, active=active)
-    from ..ops import fused_network
-    n = inputs.shape[1]
-    if n <= ENC_CHUNK:
-        return fused_network.apply_fused(net, inputs)
-    out = torch.empty((net.config.padded_output_dims, n),
-                      dtype=torch.float32, device=inputs.device)
-    for s in range(0, n, ENC_CHUNK):
-        out[:, s:s + ENC_CHUNK] = fused_network.apply_fused(
-            net, inputs[:, s:s + ENC_CHUNK])
-    return out
+    segments at a time; `active` is ignored, as on the JAX XLA path.
+    While traced, the live rows (`active`'s count, else N) add to the
+    `net_rows` counter (utils/spans.py)."""
+    with spans.span("neuralForward"):
+        spans.count("net_rows",
+                    inputs.shape[1] if active is None else active.sum())
+        if net.config.grid_type == "lane":
+            from ..ops.lane_grid_kernel import forward_lane
+            return forward_lane(net, inputs, active=active)
+        from ..ops import fused_network
+        n = inputs.shape[1]
+        if n <= ENC_CHUNK:
+            return fused_network.apply_fused(net, inputs)
+        out = torch.empty((net.config.padded_output_dims, n),
+                          dtype=torch.float32, device=inputs.device)
+        for s in range(0, n, ENC_CHUNK):
+            out[:, s:s + ENC_CHUNK] = fused_network.apply_fused(
+                net, inputs[:, s:s + ENC_CHUNK])
+        return out
 
 
 # ---------------------------------------------------------------------------

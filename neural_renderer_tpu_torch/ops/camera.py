@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from .rng import rand01
 
 
@@ -19,10 +20,12 @@ def generate_primary_rays(px, py, rng_state, cam_pos, cam_forward, cam_right,
     f32 = torch.float32
     rng_state, jitter_x = rand01(rng_state)
     rng_state, jitter_y = rand01(rng_state)
-    aspect = torch.tensor(width / height, dtype=f32, device=dev)
-    u = (px.to(f32) + jitter_x) / torch.tensor(width, dtype=f32, device=dev)
-    v = 1.0 - (py.to(f32) + jitter_y) / torch.tensor(height, dtype=f32,
-                                                     device=dev)
+    with spans.span("sync.camera"):
+        aspect = torch.tensor(width / height, dtype=f32, device=dev)
+        w_t = torch.tensor(width, dtype=f32, device=dev)
+        h_t = torch.tensor(height, dtype=f32, device=dev)
+    u = (px.to(f32) + jitter_x) / w_t
+    v = 1.0 - (py.to(f32) + jitter_y) / h_t
     u = u * 2.0 - 1.0
     v = v * 2.0 - 1.0
 

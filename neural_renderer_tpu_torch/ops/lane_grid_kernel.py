@@ -35,6 +35,7 @@ import torch
 
 from . import cuda_build
 from ..models import lane_grid, nbvh
+from ..utils import spans
 
 LANES = 128
 _OUT_DIMS = 16
@@ -167,11 +168,12 @@ class _KernelOperands:
             # from this one copy.
             self.w_hidden = torch.stack([m.t() for m in w[:-1]]).contiguous()
             self.w_out = w[-1].t().contiguous()
-        self.scales = torch.tensor(
-            [lane_grid.level_scale(lv, cfg.base_resolution,
-                                   cfg.per_level_scale)
-             for lv in range(cfg.n_levels)],
-            dtype=torch.float32, device=net.lane.device)
+        with spans.span("sync.laneOperands"):
+            self.scales = torch.tensor(
+                [lane_grid.level_scale(lv, cfg.base_resolution,
+                                       cfg.per_level_scale)
+                 for lv in range(cfg.n_levels)],
+                dtype=torch.float32, device=net.lane.device)
 
 
 def _params_key(net):

@@ -9,10 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
+
 
 def splat(v, n: int, device, dtype=torch.float32):
     """Broadcast a length-3 constant (or [3] tensor) to [3, N]."""
-    v = torch.as_tensor(v, dtype=dtype, device=device)
+    with spans.span("sync.splat"):
+        v = torch.as_tensor(v, dtype=dtype, device=device)
     return v[:, None].expand(3, n)
 
 
@@ -43,7 +46,8 @@ def safe_normalize(v, fallback=(0.0, 1.0, 0.0), eps: float = 1e-20,
                    min_len: float = 0.0):
     """normalize(v) where |v| > min_len else the fallback constant."""
     n = length(v)
-    fb = torch.tensor(fallback, dtype=v.dtype, device=v.device)[:, None]
+    with spans.span("sync.safeNormalize"):
+        fb = torch.tensor(fallback, dtype=v.dtype, device=v.device)[:, None]
     out = v / torch.clamp(n, min=eps)[None, :]
     return torch.where((n > min_len)[None, :], out, fb)
 

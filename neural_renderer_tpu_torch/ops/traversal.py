@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
 from . import trace_cluster as tc
 from .linalg import cross, dot
 from .intersect import intersect_aabb
@@ -403,15 +404,17 @@ def _trace_two_level_impl(mesh, origins, dirs, mode: int, active,
     best_t = best_t[:n]
     best_tri = torch.clamp(best_tri[:n].to(torch.int64), 0, num_tris - 1)
 
-    if bool(overflow.any()):
-        over_rays = torch.repeat_interleave(overflow, BLOCK_RAYS)[:n]
-        if active is not None:
-            over_rays = over_rays & active
-        idx = torch.nonzero(over_rays).squeeze(1)
-        if idx.numel() > 0:
-            w = _trace_bvh(mesh, origins[:, idx], dirs[:, idx], mode, None)
-            best_t = best_t.index_copy(0, idx, w.t)
-            best_tri = best_tri.index_copy(0, idx, w.tri)
+    with spans.span("sync.traceOverflow"):
+        idx = None
+        if bool(overflow.any()):
+            over_rays = torch.repeat_interleave(overflow, BLOCK_RAYS)[:n]
+            if active is not None:
+                over_rays = over_rays & active
+            idx = torch.nonzero(over_rays).squeeze(1)
+    if idx is not None and idx.numel() > 0:
+        w = _trace_bvh(mesh, origins[:, idx], dirs[:, idx], mode, None)
+        best_t = best_t.index_copy(0, idx, w.t)
+        best_tri = best_tri.index_copy(0, idx, w.tri)
 
     hit = best_t < MISS
     if active is not None:
@@ -448,8 +451,12 @@ def _trace_bvh(mesh, origins, dirs, mode: int, active) -> TraceResult:
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
     ints = mesh.nodes_packed[6:11].view(torch.int32)
-    while bool((node >= 0).any()):
+    while True:
         live = node >= 0
+        with spans.span("sync.bvhWalk"):
+            going = bool(live.any())
+        if not going:
+            break
         nidx = torch.clamp(node, 0, num_nodes - 1)
         g = mesh.nodes_packed[:, nidx]
         gi = ints[:, nidx].to(torch.int64)

@@ -20,6 +20,7 @@ import torch
 
 from ..ops import traversal
 from ..ops.linalg import where3
+from ..utils import spans
 from . import pathtrace as pt
 from .neural_march import (_COMPACT_MIN_RAYS, NeuralContext, _material_rows,
                            bounce_shell_entry_and_early_term,
@@ -30,14 +31,19 @@ def _bounce_stage(ctx, params, additional, rays: "pt.BounceRays", active):
     """Early termination + shell entry (one fused sweep) + shell march, on
     any batch width; with an `additional` mesh (else None) its ANY trace of
     the rays with pdf > 0, merged by distance."""
-    active, entry = bounce_shell_entry_and_early_term(ctx, rays, active)
-    hits = trace_neural_segments(ctx, params, rays.origin, rays.direction,
-                                 entry=entry)
+    with spans.span("earlyTermination"):
+        active, entry = bounce_shell_entry_and_early_term(ctx, rays, active)
+    with spans.span("shellTrace"):
+        hits = trace_neural_segments(ctx, params, rays.origin,
+                                     rays.direction, entry=entry)
     if additional is not None:
-        add_hits = pt.trace_rays_mesh(additional, params, rays.origin,
-                                      rays.direction, traversal.ANY,
-                                      active=rays.pdf > 0.0)
-        hits = pt.select_closest_hits(params, hits, add_hits, rays.origin)
+        with spans.span("additionalMeshBounce"):
+            add_hits = pt.trace_rays_mesh(additional, params, rays.origin,
+                                          rays.direction, traversal.ANY,
+                                          active=rays.pdf > 0.0)
+        with spans.span("selectClosestBounce"):
+            hits = pt.select_closest_hits(params, hits, add_hits,
+                                          rays.origin)
     return hits, active
 
 
@@ -47,7 +53,8 @@ def _bounce_stage_compacted(ctx, params, additional, rays, path_active,
     `_ray_sort_order` (direction octant | origin morton | direction
     morton) so the shell sweeps see tight 512-ray frusta; results are
     scattered back. Per-ray math is batch-position independent, so this
-    equals the full-batch stage."""
+    equals the full-batch stage. The gather and the scatter are the
+    `compactBounce` stage."""
     n = rays.origin.shape[1]
     dev = rays.origin.device
     mask = path_active & (rays.pdf > 0.0)
@@ -55,25 +62,28 @@ def _bounce_stage_compacted(ctx, params, additional, rays, path_active,
     if not use:
         return _bounce_stage(ctx, params, additional, rays, mask)
 
-    zero3 = torch.zeros((3, n), dtype=torch.float32, device=dev)
-    idx0 = torch.nonzero(mask).squeeze(1)
-    k = idx0.shape[0]
-    if k == 0:
-        miss = pt.HitState(position=zero3, normal=zero3, albedo=zero3,
-                           material_params=zero3,
-                           hit=torch.zeros(n, dtype=torch.bool, device=dev),
-                           distance=torch.zeros(n, device=dev))
-        return miss, torch.zeros(n, dtype=torch.bool, device=dev)
+    with spans.span("compactBounce"):
+        zero3 = torch.zeros((3, n), dtype=torch.float32, device=dev)
+        with spans.span("sync.bounceCompact"):
+            idx0 = torch.nonzero(mask).squeeze(1)
+        k = idx0.shape[0]
+        if k == 0:
+            miss = pt.HitState(
+                position=zero3, normal=zero3, albedo=zero3,
+                material_params=zero3,
+                hit=torch.zeros(n, dtype=torch.bool, device=dev),
+                distance=torch.zeros(n, device=dev))
+            return miss, torch.zeros(n, dtype=torch.bool, device=dev)
 
-    order = traversal._ray_sort_order(rays.origin[:, idx0],
-                                      rays.direction[:, idx0])
-    idx = idx0[order]
-    rays_k = pt.BounceRays(
-        origin=rays.origin[:, idx], direction=rays.direction[:, idx],
-        pdf=rays.pdf[idx],
-        # brdf_weight is read only by the full-batch integrator.
-        brdf_weight=torch.zeros((3, k), dtype=torch.float32, device=dev),
-        distance=rays.distance[idx])
+        order = traversal._ray_sort_order(rays.origin[:, idx0],
+                                          rays.direction[:, idx0])
+        idx = idx0[order]
+        rays_k = pt.BounceRays(
+            origin=rays.origin[:, idx], direction=rays.direction[:, idx],
+            pdf=rays.pdf[idx],
+            # brdf_weight is read only by the full-batch integrator.
+            brdf_weight=torch.zeros((3, k), dtype=torch.float32, device=dev),
+            distance=rays.distance[idx])
     hits_k, act_k = _bounce_stage(
         ctx, params, additional, rays_k,
         torch.ones(k, dtype=torch.bool, device=dev))
@@ -83,19 +93,20 @@ def _bounce_stage_compacted(ctx, params, additional, rays, path_active,
         out[..., idx] = vals
         return out
 
-    hit_full = srow(hits_k.hit)
-    if additional is None:
-        # Every march hit carries the same global-material row.
-        material_params = where3(hit_full, _material_rows(params, n, dev),
-                                 zero3)
-    else:
-        # A hit of the additional mesh carries its own material's.
-        material_params = srow(hits_k.material_params)
-    hits = pt.HitState(
-        position=srow(hits_k.position), normal=srow(hits_k.normal),
-        albedo=srow(hits_k.albedo), material_params=material_params,
-        hit=hit_full, distance=srow(hits_k.distance))
-    return hits, srow(act_k)
+    with spans.span("compactBounce"):
+        hit_full = srow(hits_k.hit)
+        if additional is None:
+            # Every march hit carries the same global-material row.
+            material_params = where3(hit_full,
+                                     _material_rows(params, n, dev), zero3)
+        else:
+            # A hit of the additional mesh carries its own material's.
+            material_params = srow(hits_k.material_params)
+        hits = pt.HitState(
+            position=srow(hits_k.position), normal=srow(hits_k.normal),
+            albedo=srow(hits_k.albedo), material_params=material_params,
+            hit=hit_full, distance=srow(hits_k.distance))
+        return hits, srow(act_k)
 
 
 def _additional(use_additional, additional_mesh):
@@ -109,11 +120,14 @@ def _additional(use_additional, additional_mesh):
 def _camera_hits(ctx: NeuralContext, params, origins, dirs, additional):
     """Camera-ray hits: the shell march and, with an `additional` mesh,
     its FORWARD_ONLY trace merged by distance."""
-    hits = trace_neural_segments(ctx, params, origins, dirs)
+    with spans.span("shellTrace"):
+        hits = trace_neural_segments(ctx, params, origins, dirs)
     if additional is not None:
-        add_hits = pt.trace_rays_mesh(additional, params, origins, dirs,
-                                      traversal.FORWARD_ONLY)
-        hits = pt.select_closest_hits(params, hits, add_hits, origins)
+        with spans.span("additionalMeshPrimary"):
+            add_hits = pt.trace_rays_mesh(additional, params, origins, dirs,
+                                          traversal.FORWARD_ONLY)
+        with spans.span("selectClosestPrimary"):
+            hits = pt.select_closest_hits(params, hits, add_hits, origins)
     return hits
 
 
@@ -130,30 +144,36 @@ def render_neural_frame(ctx: NeuralContext, env, params, accum,
     with global pixel ids (parallel/shardings.py); accum and the outputs
     then cover that stripe."""
     additional = _additional(use_additional, additional_mesh)
-    pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(params, row0,
-                                                             n_rows)
+    with spans.span("primaryRays"):
+        pixel_idx, sample_of, _, origins, dirs = pt.primary_rays(
+            params, row0, n_rows)
     hits = _camera_hits(ctx, params, origins, dirs, additional)
-    path = pt.init_path_state(params, env, hits, dirs)
+    with spans.span("initPathState"):
+        path = pt.init_path_state(params, env, hits, dirs)
 
     incoming = None
     cur_hits = hits
     for bounce in range(1, params.max_bounces + 1):
         # Once no path is active a bounce is an exact identity on the path
         # state (active only shrinks; integration writes under masks).
-        if incoming is not None and not bool(path.active.any()):
+        if incoming is not None and not pt.any_active(path):
             break
-        rays = pt.sample_bounce_directions(params, pixel_idx, sample_of,
-                                           cur_hits, path.active, incoming)
-        path = pt.update_active_after_sampling(path, cur_hits, rays)
+        with spans.span("sampleBounce"):
+            rays = pt.sample_bounce_directions(params, pixel_idx, sample_of,
+                                               cur_hits, path.active,
+                                               incoming)
+            path = pt.update_active_after_sampling(path, cur_hits, rays)
         bounce_hits, active = _bounce_stage_compacted(
             ctx, params, additional, rays, path.active,
             compaction=bounce_compaction)
         path = path._replace(active=active)
-        path = pt.integrate_bounce(params, env, path, bounce_hits, rays,
-                                   bounce, pixel_idx, sample_of)
+        with spans.span("integrateBounce"):
+            path = pt.integrate_bounce(params, env, path, bounce_hits, rays,
+                                       bounce, pixel_idx, sample_of)
         incoming, cur_hits = rays.direction, bounce_hits
 
-    img, new_accum = pt.finalize(params, path.radiance, accum)
+    with spans.span("finalize"):
+        img, new_accum = pt.finalize(params, path.radiance, accum)
     if return_guides:
         return img, new_accum, pt.guide_buffers(params, hits, n_rows)
     return img, new_accum

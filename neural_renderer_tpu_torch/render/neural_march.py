@@ -36,6 +36,7 @@ from ..models import nbvh
 from ..ops import traversal
 from ..ops.linalg import safe_normalize, splat, where3
 from ..scene.materials import P_METALLIC, P_ROUGHNESS, P_SPECULAR
+from ..utils import spans
 from .pathtrace import HitState
 
 MAX_SEGMENT_ITERATIONS = 10
@@ -135,7 +136,8 @@ def _segment_step(ctx, params, dirs_b, entry_b, active_b, accum_b, sw=None):
     t_from_exit = sw.outer_fwd - (seg_t + SEGMENT_EPSILON)
     re_hit = (sw.outer_fwd < 1e30) & (t_from_exit > traversal.MIN_T)
     bad = still & (sw.outer_fwd < 1e30) & ~re_hit
-    bidx = torch.nonzero(bad).squeeze(1)
+    with spans.span("sync.marchReentry"):
+        bidx = torch.nonzero(bad).squeeze(1)
     if bidx.numel() > 0:
         res = traversal.trace_mesh(ctx.outer, shifted_exit[:, bidx],
                                    dirs_b[:, bidx], traversal.FORWARD_ONLY)
@@ -181,7 +183,8 @@ def _camera_fwd2_entry(ctx, origins, dirs):
         outer_fwd2=miss)
     bad = active & (dropped(sw0.outer_bwd) | dropped(sw0.inner_fwd)
                     | dropped(sw0.inner_bwd) | dropped(sw0.outer_fwd2))
-    bidx = torch.nonzero(bad).squeeze(1)
+    with spans.span("sync.cameraEntry"):
+        bidx = torch.nonzero(bad).squeeze(1)
     if bidx.numel() > 0:
         d_b = dirs[:, bidx]
         o_b = entry_pos[:, bidx] + d_b * SEGMENT_EPSILON
@@ -311,31 +314,42 @@ def trace_neural_segments(ctx: NeuralContext, params, origins, dirs,
 
     use_compaction = (n >= _COMPACT_MIN_RAYS) if compaction is None \
         else bool(compaction)
-    while it < MAX_SEGMENT_ITERATIONS and bool(active.any()):
+    while it < MAX_SEGMENT_ITERATIONS:
+        with spans.span("sync.marchActive"):
+            going = bool(active.any())
+        if not going:
+            break
         if not use_compaction:
             (found, hit_pos, normal, color, distance, active, entry_pos,
              accum_t) = _segment_step(ctx, params, dirs, entry_pos, active,
                                       accum_t)
             out = merge_full(out, found, hit_pos, normal, color, distance)
         else:
-            idx = torch.nonzero(active).squeeze(1)
+            with spans.span("sync.marchCompact"):
+                idx = torch.nonzero(active).squeeze(1)
             valid = torch.ones(idx.shape[0], dtype=torch.bool, device=dev)
             (found, hit_pos, normal, color, distance, new_active, new_entry,
              new_accum) = _segment_step(ctx, params, dirs[:, idx],
                                         entry_pos[:, idx], valid,
                                         accum_t[idx])
-            fidx = idx[found]
+            # The rows that found a hit and those that go on, by mask.
+            with spans.span("sync.marchScatter"):
+                fidx = idx[found]
+                f_pos, f_normal = hit_pos[:, found], normal[:, found]
+                f_color, f_dist = color[:, found], distance[found]
+                cidx = idx[new_active]
+                c_entry = new_entry[:, new_active]
+                c_accum = new_accum[new_active]
+                f_hit = _scatter(out.hit, fidx, True)
             out = HitState(
-                position=_scatter(out.position, fidx, hit_pos[:, found]),
-                normal=_scatter(out.normal, fidx, normal[:, found]),
-                albedo=_scatter(out.albedo, fidx, color[:, found]),
-                material_params=out.material_params,
-                hit=_scatter(out.hit, fidx, True),
-                distance=_scatter(out.distance, fidx, distance[found]))
+                position=_scatter(out.position, fidx, f_pos),
+                normal=_scatter(out.normal, fidx, f_normal),
+                albedo=_scatter(out.albedo, fidx, f_color),
+                material_params=out.material_params, hit=f_hit,
+                distance=_scatter(out.distance, fidx, f_dist))
             active = _scatter(active, idx, new_active)
-            cidx = idx[new_active]
-            entry_pos = _scatter(entry_pos, cidx, new_entry[:, new_active])
-            accum_t = _scatter(accum_t, cidx, new_accum[new_active])
+            entry_pos = _scatter(entry_pos, cidx, c_entry)
+            accum_t = _scatter(accum_t, cidx, c_accum)
         it += 1
 
     return out._replace(material_params=where3(

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..scene.materials import Material
+from ..utils import spans
 
 
 @dataclass
@@ -55,18 +56,19 @@ class RenderParams:
              device="cuda") -> "RenderParams":
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
-        return RenderParams(
-            cam_pos=t(cam_pos), cam_forward=t(cam_forward),
-            cam_right=t(cam_right), cam_up=t(cam_up), fov_y=t(fov_y),
-            material_row=t(material.scalar_row()),
-            use_constant_neural_color=bool(use_constant_neural_color),
-            constant_neural_color=t(constant_neural_color),
-            use_direct_env_color=bool(use_direct_env_color),
-            direct_env_color=t(direct_env_color),
-            max_radiance=100.0,
-            scene_scale=t(scene_scale),
-            sample_offset=int(sample_offset),
-            outer_shell_min=t(outer_shell_min),
-            outer_shell_inv_extent=t(outer_shell_inv_extent),
-            width=width, height=height,
-            samples_per_pixel=samples_per_pixel, max_bounces=max_bounces)
+        with spans.span("sync.params"):
+            return RenderParams(
+                cam_pos=t(cam_pos), cam_forward=t(cam_forward),
+                cam_right=t(cam_right), cam_up=t(cam_up), fov_y=t(fov_y),
+                material_row=t(material.scalar_row()),
+                use_constant_neural_color=bool(use_constant_neural_color),
+                constant_neural_color=t(constant_neural_color),
+                use_direct_env_color=bool(use_direct_env_color),
+                direct_env_color=t(direct_env_color),
+                max_radiance=100.0,
+                scene_scale=t(scene_scale),
+                sample_offset=int(sample_offset),
+                outer_shell_min=t(outer_shell_min),
+                outer_shell_inv_extent=t(outer_shell_inv_extent),
+                width=width, height=height,
+                samples_per_pixel=samples_per_pixel, max_bounces=max_bounces)

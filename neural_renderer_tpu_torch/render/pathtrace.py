@@ -28,6 +28,7 @@ from ..ops.linalg import dot, safe_normalize, splat, where3
 from ..ops.rng import init_rng, rand01
 from ..ops.srgb import encode_srgb_u8
 from ..scene.materials import P_METALLIC, P_ROUGHNESS, P_SPECULAR
+from ..utils import spans
 
 
 class HitState(NamedTuple):
@@ -206,6 +207,12 @@ def sample_bounce_directions(params, pixel_idx, sample_of, hits: HitState,
         distance=hits.distance)
 
 
+def any_active(path: PathState) -> bool:
+    """Whether any path is still active: the bounce loops' host sync."""
+    with spans.span("sync.bounceActive"):
+        return bool(path.active.any())
+
+
 def update_active_after_sampling(path: PathState, hits: HitState,
                                  rays: BounceRays) -> PathState:
     """The sampler clears pathActive for pdf <= 0 / NaN samples."""
@@ -245,9 +252,11 @@ def finalize(params, path_radiance, accum):
     p = path_radiance.shape[1] // spp
     new_accum = accum + path_radiance.reshape(3, spp, p).sum(dim=1)
     dev = path_radiance.device
-    inv = 1.0 / (torch.tensor(float(params.sample_offset & 0xFFFFFFFF),
+    with spans.span("sync.sampleCount"):
+        offset = torch.tensor(float(params.sample_offset & 0xFFFFFFFF),
                               dtype=torch.float32, device=dev)
-                 + torch.tensor(float(spp), dtype=torch.float32, device=dev))
+        count = torch.tensor(float(spp), dtype=torch.float32, device=dev)
+    inv = 1.0 / (offset + count)
     img = encode_srgb_u8(new_accum * inv).reshape(3, p // params.width,
                                                   params.width)
     return img.permute(1, 2, 0).contiguous(), new_accum
@@ -256,8 +265,10 @@ def finalize(params, path_radiance, accum):
 def accum_image(params, accum, total_spp: int):
     """Image straight from an accumulation buffer: normalize by the total
     sample count and sRGB-encode. Returns u8 [rows, W, 3]."""
-    color = accum * (1.0 / torch.tensor(float(total_spp), dtype=torch.float32,
-                                        device=accum.device))
+    with spans.span("sync.sampleCount"):
+        count = torch.tensor(float(total_spp), dtype=torch.float32,
+                             device=accum.device)
+    color = accum * (1.0 / count)
     img = encode_srgb_u8(color).reshape(3, -1, params.width)
     return img.permute(1, 2, 0).contiguous()
 
@@ -294,10 +305,13 @@ def render_gt_frame(mesh, env, params, accum, return_guides: bool = False,
     calls. row0 / n_rows render the stripe of rows [row0, row0 + n_rows)
     with global pixel ids; accum [3, n_rows*W] and the outputs cover that
     stripe."""
-    pixel_idx, sample_of, _, origins, dirs = primary_rays(params, row0,
-                                                          n_rows)
-    hits = trace_primary_gt(mesh, params, origins, dirs)
-    path = init_path_state(params, env, hits, dirs)
+    with spans.span("primaryRays"):
+        pixel_idx, sample_of, _, origins, dirs = primary_rays(params, row0,
+                                                              n_rows)
+    with spans.span("primaryTrace"):
+        hits = trace_primary_gt(mesh, params, origins, dirs)
+    with spans.span("initPathState"):
+        path = init_path_state(params, env, hits, dirs)
 
     incoming = None
     cur_hits = hits
@@ -305,16 +319,20 @@ def render_gt_frame(mesh, env, params, accum, return_guides: bool = False,
         # Once no path is active a bounce is an exact identity on the path
         # state (the trace masks on pdf > 0; integration writes under
         # active masks).
-        if incoming is not None and not bool(path.active.any()):
+        if incoming is not None and not any_active(path):
             break
-        rays = sample_bounce_directions(params, pixel_idx, sample_of,
-                                        cur_hits, path.active, incoming)
-        path = update_active_after_sampling(path, cur_hits, rays)
-        bounce_hits = trace_bounces_gt(mesh, params, rays)
-        path = integrate_bounce(params, env, path, bounce_hits, rays, bounce,
-                                pixel_idx, sample_of)
+        with spans.span("sampleBounce"):
+            rays = sample_bounce_directions(params, pixel_idx, sample_of,
+                                            cur_hits, path.active, incoming)
+            path = update_active_after_sampling(path, cur_hits, rays)
+        with spans.span("bounceTrace"):
+            bounce_hits = trace_bounces_gt(mesh, params, rays)
+        with spans.span("integrateBounce"):
+            path = integrate_bounce(params, env, path, bounce_hits, rays,
+                                    bounce, pixel_idx, sample_of)
         incoming, cur_hits = rays.direction, bounce_hits
-    img, new_accum = finalize(params, path.radiance, accum)
+    with spans.span("finalize"):
+        img, new_accum = finalize(params, path.radiance, accum)
     if return_guides:
         return img, new_accum, guide_buffers(params, hits, n_rows)
     return img, new_accum

@@ -9,7 +9,9 @@ events, then synchronised; on the CPU by the host clock. `frame_total_ms`
 is the whole frame timed the same way. The category sum may exceed it
 (the stages write their intermediates out and the bounce stages run on the
 full batch, where the frame compacts). The JAX harness subtracts a remote
-platform's round-trip floor; nothing here needs one.
+platform's round-trip floor; nothing here needs one. The neural profile's
+"avg neural calls/ray" is the live rows the network was handed
+(`net_rows`, utils/spans.py) in one more, untimed frame, over its rays.
 """
 
 from __future__ import annotations
@@ -22,24 +24,18 @@ import torch
 
 from ..models import nbvh
 from ..ops import traversal
+from ..utils import spans
+from ..utils.spans import CATEGORIES
 from . import pathtrace as pt
 from .neural_frame import render_neural_frame
 from .neural_march import (NeuralContext, bounce_shell_entry_and_early_term,
                            trace_neural_segments)
 
-# The reference's 13 KernelId categories.
-CATEGORIES = (
-    "primaryTrace", "shellTrace", "neuralForward", "initPathState",
-    "sampleBounce", "earlyTermination", "bounceTrace",
-    "additionalMeshPrimary", "additionalMeshBounce", "selectClosestPrimary",
-    "selectClosestBounce", "integrateBounce", "finalize",
-)
-
 
 @dataclass
 class KernelTimings:
-    """Per-category ms of one frame, its ray count and the frame's own
-    time."""
+    """Per-category ms of one frame, its ray count, the live rows it
+    handed the network (neural profiles) and the frame's own time."""
     ms: dict = field(default_factory=lambda: {k: 0.0 for k in CATEGORIES})
     ray_count: int = 0
     neural_ray_calls: int = 0
@@ -92,6 +88,20 @@ def _timer(device, runs: int):
             out = fn(*args)
         return out, (time.perf_counter() - t0) * 1e3 / runs
     return timed
+
+
+@torch.no_grad()
+def _net_rows(fn, *args) -> int:
+    """The live rows one untimed call fn(*args) hands the network: the
+    `net_rows` counter, which records while the torch profiler does."""
+    before = spans.totals()["counts"].get("net_rows", 0)
+    if torch.autograd._profiler_enabled():
+        fn(*args)
+    else:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            fn(*args)
+    return spans.totals()["counts"].get("net_rows", 0) - before
 
 
 def profile_renderer(renderer, cam_pos, neural: bool,
@@ -190,7 +200,6 @@ def profile_neural_frame(ctx: NeuralContext, additional_mesh, env, params,
                                       origins, dirs)
     net_in = torch.zeros((12, n), device=params.device)
     _, t.ms["neuralForward"] = timed(nbvh.apply, ctx.net, net_in)
-    t.neural_ray_calls = n  # one march iteration per ray, a lower bound
 
     if add is not None:
         add_hits, t.ms["additionalMeshPrimary"] = timed(
@@ -214,7 +223,6 @@ def profile_neural_frame(ctx: NeuralContext, additional_mesh, env, params,
                 c, p, r.origin, r.direction, entry=e),
             ctx, params, rays, entry)
         t.ms["shellTrace"] += ms
-        t.neural_ray_calls += n
         if add is not None:
             add_hits, ms = timed(
                 lambda m, p, r: pt.trace_rays_mesh(
@@ -230,10 +238,12 @@ def profile_neural_frame(ctx: NeuralContext, additional_mesh, env, params,
     path = _bounce_loop(timed, t, params, env, path, hits, pixel_idx,
                         sample_of, stage)
     _, t.ms["finalize"] = timed(pt.finalize, params, path.radiance, accum)
-    _, t.frame_total_ms = timed(
-        lambda c, e, p, a: render_neural_frame(
-            c, e, p, a, use_additional=add is not None, additional_mesh=add),
-        ctx, env, params, accum)
+    def frame(c, e, p, a):
+        return render_neural_frame(c, e, p, a, use_additional=add is not None,
+                                   additional_mesh=add)
+
+    _, t.frame_total_ms = timed(frame, ctx, env, params, accum)
+    t.neural_ray_calls = _net_rows(frame, ctx, env, params, accum)
     return t
 
 

@@ -47,6 +47,7 @@ from ..config import NeuralNetworkConfig
 from ..models import convert, nbvh
 from ..ops.denoise import DENOISE_RADIUS, bilateral_denoise
 from ..scene.scene import Scene
+from ..utils import spans
 from .neural_frame import render_neural_frame, render_neural_lambert
 from .neural_march import NeuralContext
 from .params import RenderParams
@@ -380,31 +381,40 @@ class Renderer:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with spans.span("sync.device"):
+                torch.cuda.synchronize(self.device)
 
     # -- the frame -------------------------------------------------------
-    @torch.no_grad()
     def render(self, cam_pos) -> np.ndarray:
         """Render one accumulation batch; returns the current u8 image
-        [H, W, 3]."""
+        [H, W, 3]. Traced as the span `frame` (utils/spans.py), its set-up
+        on the host as `frameParams`."""
+        with spans.span("frame"):
+            return self._render(cam_pos)
+
+    @torch.no_grad()
+    def _render(self, cam_pos) -> np.ndarray:
         if self.width <= 0 or self.height <= 0:
             raise RuntimeError("resize() must be called before render()")
-        key = self._settings_key(cam_pos)
-        if key != self._last_state:
-            self.reset_samples()
-        self._last_state = key
+        with spans.span("frameParams"):
+            key = self._settings_key(cam_pos)
+            if key != self._last_state:
+                self.reset_samples()
+            self._last_state = key
 
-        tiled = self._use_tiled()
-        # In stripes the accumulation is this rank's rows.
-        row0, rows = self._rows(tiled)
-        if self._accum is None or self._accum.shape[-1] != self.width * rows:
-            self.reset_samples()
-            self._accum = torch.zeros((3, self.width * rows),
-                                      dtype=torch.float32, device=self.device)
-        params = self._build_params(cam_pos, self._accum_sample_count)
-        env = self._env_tensors()
-        t0 = time.perf_counter()
-        frame, lambert = self._frame_fn()
+            tiled = self._use_tiled()
+            # In stripes the accumulation is this rank's rows.
+            row0, rows = self._rows(tiled)
+            if self._accum is None or \
+                    self._accum.shape[-1] != self.width * rows:
+                self.reset_samples()
+                self._accum = torch.zeros((3, self.width * rows),
+                                          dtype=torch.float32,
+                                          device=self.device)
+            params = self._build_params(cam_pos, self._accum_sample_count)
+            env = self._env_tensors()
+            t0 = time.perf_counter()
+            frame, lambert = self._frame_fn()
         if self.lambert_view:
             img = lambert(env, params)
             self._accum_sample_count = 0
@@ -427,7 +437,8 @@ class Renderer:
             self._accum_sample_count += self.samples_per_pixel
             if tiled:
                 img = self._gather_rows(img)
-        img = img.cpu().numpy()
+        with spans.span("sync.image"):
+            img = img.cpu().numpy()
         self.last_frame_seconds = time.perf_counter() - t0
         self.last_frame_rays = self.width * self.height * \
             self.samples_per_pixel
@@ -444,7 +455,10 @@ class Renderer:
         every `chunk_batches` batches and the last, each time after a
         synchronisation, so it tracks the device; the image does not depend
         on the chunking. The Lambert and denoised views have no
-        accumulation loop: use render()."""
+        accumulation loop: use render(). Traced: the set-up on the host as
+        the span `frameParams`, each batch as `frame` (its parameters as
+        `frameParams`), the last with the image (`finalize`) and its copy
+        to the host."""
         if self.width <= 0 or self.height <= 0:
             raise RuntimeError("resize() must be called before render()")
         if self.lambert_view or self.denoise:
@@ -453,39 +467,45 @@ class Renderer:
         if total_samples % batch_spp != 0:
             raise ValueError(f"total_samples {total_samples} must be a "
                              f"multiple of batch_spp {batch_spp}")
-        chunk_batches = max(1, int(chunk_batches))
-        self.set_samples_per_pixel(batch_spp)
-        self.reset_samples()
-        # render()'s change detection must not blend into this buffer.
-        self._last_state = None
+        with spans.span("frameParams"):
+            chunk_batches = max(1, int(chunk_batches))
+            self.set_samples_per_pixel(batch_spp)
+            self.reset_samples()
+            # render()'s change detection must not blend into this buffer.
+            self._last_state = None
 
-        env = self._env_tensors()
-        # In stripes each rank accumulates its rows; only the final u8
-        # image is gathered.
-        tiled = self._use_tiled()
-        row0, rows = self._rows(tiled)
-        accum = torch.zeros((3, self.width * rows),
-                            dtype=torch.float32, device=self.device)
-        frame, _ = self._frame_fn()
-        n_total = total_samples // batch_spp
-        self._sync()
+            env = self._env_tensors()
+            # In stripes each rank accumulates its rows; only the final u8
+            # image is gathered.
+            tiled = self._use_tiled()
+            row0, rows = self._rows(tiled)
+            accum = torch.zeros((3, self.width * rows),
+                                dtype=torch.float32, device=self.device)
+            frame, _ = self._frame_fn()
+            n_total = total_samples // batch_spp
+            self._sync()
         t0 = time.perf_counter()
         params = None
         for i in range(n_total):
-            # The offset advances as a uint32, like the sample counter of
-            # the RNG streams it seeds.
-            params = self._build_params(cam_pos,
-                                        (i * batch_spp) & 0xFFFFFFFF)
-            _, accum = frame(env, params, accum, row0=row0, n_rows=rows)
-            if progress is not None and ((i + 1) % chunk_batches == 0
-                                         or i + 1 == n_total):
-                self._sync()
-                progress(i + 1, n_total)
-        img = accum_image(params, accum, total_samples)
-        if tiled:
-            img = self._gather_rows(img)
-        img = img.cpu().numpy()
-        self._sync()
+            with spans.span("frame"):
+                with spans.span("frameParams"):
+                    # The offset advances as a uint32, like the sample
+                    # counter of the RNG streams it seeds.
+                    params = self._build_params(cam_pos,
+                                                (i * batch_spp) & 0xFFFFFFFF)
+                _, accum = frame(env, params, accum, row0=row0, n_rows=rows)
+                if progress is not None and ((i + 1) % chunk_batches == 0
+                                             or i + 1 == n_total):
+                    self._sync()
+                    progress(i + 1, n_total)
+                if i + 1 == n_total:
+                    with spans.span("finalize"):
+                        img = accum_image(params, accum, total_samples)
+                        if tiled:
+                            img = self._gather_rows(img)
+                    with spans.span("sync.image"):
+                        img = img.cpu().numpy()
+                    self._sync()
         self.last_frame_seconds = time.perf_counter() - t0
         self.last_frame_rays = self.width * self.height * total_samples
         self._accum = accum

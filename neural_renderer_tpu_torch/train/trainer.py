@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models import convert, nbvh
+from ..utils import spans
 from .dataset import sample_segment_batch
 from .losses import loss_counts, shell_losses
 
@@ -170,15 +171,17 @@ def _sharded_grad_step(state: TrainState, batch, fused: bool):
     metrics summed over the ranks are the whole batch's losses."""
     from ..parallel.shardings import all_reduce_sum
     sharded = state.net
-    full = sharded.gather()
-    counts = all_reduce_sum(torch.stack(loss_counts(batch)))
-    total, metrics = loss_fn(full, batch, fused, counts=(counts[0],
-                                                          counts[1]))
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    sharded.reduce_grads(full)
-    state.optimizer.step()
-    state.scheduler.step()
+    with spans.span("lossGrad"):
+        full = sharded.gather()
+        counts = all_reduce_sum(torch.stack(loss_counts(batch)))
+        total, metrics = loss_fn(full, batch, fused, counts=(counts[0],
+                                                              counts[1]))
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        sharded.reduce_grads(full)
+    with spans.span("optimizerStep"):
+        state.optimizer.step()
+        state.scheduler.step()
     state.step += 1
     names = list(metrics)
     summed = all_reduce_sum(torch.stack([metrics[k].detach()
@@ -197,11 +200,13 @@ def _local_grad_step(cfg: TrainConfig, net_config: nbvh.NbvhConfig, device,
         return lambda state, batch: _sharded_grad_step(state, batch, fused)
 
     def step(state: TrainState, batch):
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(state.net, batch, fused)
-        total.backward()
-        state.optimizer.step()
-        state.scheduler.step()
+        with spans.span("lossGrad"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(state.net, batch, fused)
+            total.backward()
+        with spans.span("optimizerStep"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
@@ -231,7 +236,9 @@ def make_train_step(cfg: TrainConfig, net_config: nbvh.NbvhConfig, gt_mesh,
     and update of make_train_step_on_batch. global_row: the scene's
     global-material row (scene_global_row). With a mesh every rank draws
     the same rays from its generator (seeded alike) and marches only its
-    share of them (sample_segment_batch's `shard`)."""
+    share of them (sample_segment_batch's `shard`). Traced as the span
+    `trainStep` around the stages `sampleSegments`, `lossGrad` and
+    `optimizerStep` (utils/spans.py)."""
     grad_step = _local_grad_step(cfg, net_config, device, mesh is not None)
     shard = None
     if mesh is not None:
@@ -239,13 +246,14 @@ def make_train_step(cfg: TrainConfig, net_config: nbvh.NbvhConfig, gt_mesh,
         shard = axis_coords(mesh, BATCH_AXES)
 
     def step(state: TrainState, generator: torch.Generator):
-        with torch.no_grad():
-            batch = sample_segment_batch(
-                generator, gt_mesh, outer, inner, outer_min,
-                outer_inv_extent, cfg.batch_size, radius,
-                segments_per_ray=cfg.segments_per_ray, global_row=global_row,
-                shard=shard)
-        return grad_step(state, batch)
+        with spans.span("trainStep"):
+            with torch.no_grad(), spans.span("sampleSegments"):
+                batch = sample_segment_batch(
+                    generator, gt_mesh, outer, inner, outer_min,
+                    outer_inv_extent, cfg.batch_size, radius,
+                    segments_per_ray=cfg.segments_per_ray,
+                    global_row=global_row, shard=shard)
+            return grad_step(state, batch)
 
     return step
 

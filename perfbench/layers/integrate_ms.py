@@ -1,0 +1,10 @@
+"""Device ms a call in the bounce integrator, the program's stage span
+`nr.integrateBounce` (`pathtrace.integrate_bounce`), from its CUDA event
+pairs: from the device reaching the stage's first event to reaching its
+last, so idle inside the stage counts."""
+
+from layers._program import stage_ms
+
+
+def read(tr):
+    return stage_ms(tr, "integrateBounce")

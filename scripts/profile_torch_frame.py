@@ -19,7 +19,9 @@ the wall time per frame, the
 summed device time of all kernels and the device's idle share over the
 window, and the 20 kernels with the largest device time (the port's CUDA
 kernels by name, the rest PyTorch's own), then the port's kernels below
-them. With --train: training steps of
+them, then the program's own spans (`utils/spans.py`) a frame: each
+stage's device ms from its CUDA event pairs, and each host-sync site's
+entries beside the runtime's synchronisations. With --train: training steps of
 `cli/train.py`'s step function from seeded weights on configs/knot/
 knot_lane.json (3 segments per ray) or configs/sphere/sphere_lane.json (1),
 --batch segments per step: one warm-up step, --frames steps timed by stage
@@ -153,6 +155,7 @@ def train_step(scene_name, batch, frames, dev):
     from neural_renderer_tpu_torch.train import (
         TrainConfig, init_train_state, make_train_step_on_batch,
         sample_segment_batch, scene_global_row, segment_domain)
+    from neural_renderer_tpu_torch.utils import spans
     name = {"knot": "knot_lane.json", "sphere": "sphere_lane.json"}
     cfg = nr_config.load_config(os.path.join(ROOT, "configs", scene_name,
                                              name[scene_name]))
@@ -170,7 +173,8 @@ def train_step(scene_name, batch, frames, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def sample():
-        with torch.no_grad():
+        # Named as make_train_step names its sampler.
+        with torch.no_grad(), spans.span("sampleSegments"):
             return sample_segment_batch(gen, *meshes, omin, inv, batch,
                                         radius, segments, global_row=row)
 
@@ -202,12 +206,15 @@ def train_step(scene_name, batch, frames, dev):
 
 def profile_frames(render, warmup, frames):
     """(wall seconds, profiler) over `frames` calls of render() after
-    `warmup` unprofiled ones."""
+    `warmup` unprofiled ones; the program's spans hold those calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from neural_renderer_tpu_torch.utils import spans
     for _ in range(warmup):
         render()
     torch.cuda.synchronize()
+    spans.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -248,6 +255,31 @@ def report(result, frames, label):
             continue
         print(f"{e.key[:60]:60s} {e.count / frames:11.1f} "
               f"{e.self_device_time_total / 1e3 / frames:15.3f}")
+    report_spans(prof, frames)
+
+
+# The runtime calls that make the host wait for the device.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def report_spans(prof, frames):
+    """The program's spans a frame (`utils/spans.py`, recorded while the
+    profiler ran): the calls of the frame or step and of each stage, each
+    stage's device ms, each sync site's entries, and the runtime's
+    synchronisations of the window."""
+    from neural_renderer_tpu_torch.utils import spans
+    got = spans.totals()["spans"]
+    print(f"{'span':24s} {'calls/frame':>11s} {'device ms/frame':>15s}")
+    for name in sorted(n for n in got if not n.startswith(spans.SYNC)):
+        s = got[name]
+        ms = "n/a" if s["device_s"] is None else \
+            f"{s['device_s'] * 1e3 / frames:.3f}"
+        print(f"{name:24s} {s['calls'] / frames:11.1f} {ms:>15s}")
+    syncs = sum(e.count for e in prof.key_averages() if e.key in SYNC_CALLS)
+    print(f"host syncs a frame: {syncs / frames:.1f} (runtime); by site:")
+    for name in sorted(n for n in got if n.startswith(spans.SYNC)):
+        print(f"  {name:30s} {got[name]['calls'] / frames:11.1f}")
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ from util import outward_sphere
 from neural_renderer_tpu_torch.models import convert, nbvh
 from neural_renderer_tpu_torch.render import neural_march, profiler
 from neural_renderer_tpu_torch.render import pathtrace as pt
+from neural_renderer_tpu_torch.render.neural_frame import render_neural_frame
 from neural_renderer_tpu_torch.render.params import RenderParams
 from neural_renderer_tpu_torch.scene.envmap import EnvironmentTensors
 from neural_renderer_tpu_torch.scene.materials import Material
@@ -128,8 +129,22 @@ def test_neural_profile_by_bounce_matches_jax_keys(shells):
 
     t = profiler.profile_neural_frame(ctx, None, _env(), p, runs=1)
     assert _filled(t) == NEURAL_CATEGORIES
-    assert t.neural_calls_per_ray == 2.0   # the camera march and bounce 1
-    assert "avg neural calls/ray: 2.00" in t.table()
+    # Measured: the live rows one frame hands the network.
+    rows = []
+    real = nbvh.apply
+
+    def spy(net, inputs, active=None):
+        rows.append(inputs.shape[1] if active is None
+                    else int(active.sum()))
+        return real(net, inputs, active=active)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nbvh, "apply", spy)
+        render_neural_frame(ctx, _env(), p,
+                            torch.zeros((3, 64), device="cpu"))
+    assert t.neural_ray_calls == sum(rows) > 0
+    assert t.neural_calls_per_ray == sum(rows) / 64
+    assert f"avg neural calls/ray: {sum(rows) / 64:.2f}" in t.table()
 
 
 @pytest.mark.parametrize("neural", [False, True])
@@ -154,7 +169,9 @@ def test_staged_chain_gives_the_frame(shells, monkeypatch, neural):
     else:
         mesh = _carry_gt(outward_sphere(6, 12, 1.0).to_arrays())
         profiler.profile_gt_frame(mesh, _env(), p, runs=1)
-    assert len(calls) == 4   # chain warm-up + 1, frame warm-up + 1
+    # Chain warm-up + 1, frame warm-up + 1; the neural profile renders one
+    # more frame, untimed, to count the network's rows.
+    assert len(calls) == (5 if neural else 4)
     staged, frame = calls[0], calls[2]
     assert torch.equal(staged[0], frame[0])
     assert torch.equal(staged[1], frame[1])
