@@ -32,7 +32,9 @@ its training. Phases, each failing the run:
      difference under 1.0);
   4. render the full-size frame (one warm-up, two timed) with seeded
      weights and every launch counter set to 0 first, check every kernel
-     launched, then time the trained weights the same way;
+     launched (K1, K2, K3 and K10, the bounce sampler: the kernels line's
+     launches of K10 are this run's), then time the trained weights the
+     same way;
   5. hold the clustered closest-hit kernel against its twin, bit-exact in
      t, triangle id and clusters swept, on 131,072-ray slices of the knot's
      sorted 1080p camera rays (FORWARD_ONLY) and first bounce rays (ANY);
@@ -264,7 +266,18 @@ its training. Phases, each failing the run:
      cut to 500 steps at its full width (65,536 segments x 3, cosine over
      the 500 steps) through `cli/train.py`, counters at 0 first: K4, K3,
      K2 and K6 must launch, and the last loss must fall under
-     STUDIO500_LOSS; its Msegments/s logged.
+     STUDIO500_LOSS; its Msegments/s logged;
+ 27. K10, the bounce sampler (ops/sample_bounce.py), on the inputs of two
+     `sampleBounce` calls of the cells it serves: the lane sphere's view at
+     3840x2160 x 1 (its first bounce, the camera ray regenerated) and the
+     knot's `evaluate` batch at 1920x1080 x 8 (its second bounce, the
+     stored incoming directions); each call must launch K10 once and hold
+     to its twin on the card (K10_*); time the wrapper, its kernel's
+     device time (torch.profiler), the twin and the bound
+     (bounds.sample_bounce_seconds); then render both and the knot's
+     ground-truth frame at 1920x1080 (the gt_view cell's) traced: in each
+     the spans counter `sample_kernel_rays` must equal the rays handed to
+     the stage over all its calls.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, without
@@ -425,6 +438,138 @@ def k7_planted(out, tiles_apart):
     return {"stage refilled while read": a, "neighbouring rows swapped": b}
 
 
+# K10 against its twin (phase 27; tests/test_torch_sample_bounce.py). Both
+# evaluate the same expressions in the same order in IEEE FP32; they may
+# differ where a libm call (cosf, sinf, tanf, logf, powf) rounds otherwise,
+# and the GTR lobes' pdfs magnify an ulp of n.h about a thousandfold near
+# their peaks (ROADMAP, "Bounce-sampler PDFs near GTR peaks": up to 2.6e-3
+# relative). Held: the valid and active masks equal on all but
+# K10_MASK_SHARE of the rays; where both are valid, directions and
+# origins within K10_ABS absolute, pdf and BRDF weight within K10_REL of
+# the twin's (relative to the larger of its value and 1e-5, as
+# tests/test_torch_foundation.py).
+K10_MASK_SHARE = 1e-5
+K10_ABS = 1e-5
+K10_REL = 3e-3
+
+
+def k10_errors(got, want):
+    """K10's (rays, active) against its twin's: the share of rays whose
+    valid (pdf > 0) or active flag differs ("mask"), and on the rays valid
+    in both the largest absolute difference of the directions and origins
+    and the largest relative difference of the pdfs and BRDF weights."""
+    (rg, ag), (rw, aw) = got, want
+    vg, vw = rg.pdf > 0, rw.pdf > 0
+    both = vg & vw
+
+    def largest(a, b, rel):
+        if not bool(both.any()):
+            return 0.0
+        a, b = a[..., both], b[..., both]
+        d = (a - b).abs()
+        if rel:
+            d = d / b.abs().clamp(min=1e-5)
+        return d.max().item()
+
+    return dict(rays=int(vg.numel()),
+                mask=((vg != vw) | (ag != aw)).float().mean().item(),
+                direction=largest(rg.direction, rw.direction, False),
+                origin=largest(rg.origin, rw.origin, False),
+                pdf=largest(rg.pdf, rw.pdf, True),
+                weight=largest(rg.brdf_weight, rw.brdf_weight, True))
+
+
+def k10_faults(e):
+    """Why k10_errors' readings `e` fail the hold; empty when they hold."""
+    bounds = dict(mask=K10_MASK_SHARE, direction=K10_ABS, origin=K10_ABS,
+                  pdf=K10_REL, weight=K10_REL)
+    return "; ".join(f"{k} {e[k]!r} beyond {b!r}" for k, b in bounds.items()
+                     if not e[k] <= b)
+
+
+def k10_planted(rays, active):
+    """Faults planted in K10's (rays, active): a valid ray's direction
+    taken from the next valid ray's, every pdf 1% high, the red channel of
+    every BRDF weight 1% low, the active flag of one valid ray in 100
+    cleared."""
+    valid = (rays.pdf > 0).nonzero().squeeze(1)
+    d = rays.direction.clone()
+    d[:, valid[0]] = rays.direction[:, valid[1]]
+    w = rays.brdf_weight.clone()
+    w[0] *= 0.99
+    act = active.clone()
+    act[valid[::100]] = False
+    return {"next ray's direction": (rays._replace(direction=d), active),
+            "pdf 1% high": (rays._replace(pdf=rays.pdf * 1.01), active),
+            "red weight 1% low": (rays._replace(brdf_weight=w), active),
+            "active cleared": (rays, act)}
+
+
+def sampler_renderer(config, width, height, spp, dev="cuda"):
+    """(Renderer, camera position) of configs/<config> as the benchmark's
+    render cells run it: the viewer's set-up at width x height x spp, the
+    neural query on, no additional mesh, no denoiser."""
+    import argparse
+    from neural_renderer_tpu_torch.cli import viewer
+    _, rend, ctl, basis = viewer.build_renderer(argparse.Namespace(
+        config=os.path.join(ROOT, "configs", config), device=dev,
+        width=width, height=height, spp=spp, ckpt=""))
+    rend.set_camera_basis(basis())
+    rend.set_use_neural_query(True)
+    rend.set_use_additional_mesh(False)
+    rend.set_denoise(False)
+    return rend, ctl.camera.position
+
+
+def sampler_inputs(render, calls):
+    """The arguments of the `sampleBounce` stage's calls numbered `calls`
+    (0 = the first bounce) that render() makes: (params, pixel ids, sample
+    ids, hits, path_active, incoming), as `pathtrace.sample_bounce` takes
+    them."""
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    stage, seen = pt.sample_bounce, []
+
+    def capture(*args):
+        seen.append(args if len(seen) in calls else None)
+        return stage(*args)
+
+    pt.sample_bounce = capture
+    try:
+        render()
+    finally:
+        pt.sample_bounce = stage
+    return [seen[k] for k in calls]
+
+
+def sampler_rays_traced(render):
+    """Run render() traced (torch.profiler on the host and the device, as
+    the benchmark's traced runs record it, so the spans record) and return
+    (the rays handed to the `sampleBounce` stage over all its calls, the
+    spans counter `sample_kernel_rays` over the same run)."""
+    import torch
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+    from neural_renderer_tpu_torch.utils import spans
+    stage, handed = pt.sample_bounce, [0]
+
+    def counting(*args):
+        handed[0] += args[3].hit.shape[0]
+        return stage(*args)
+
+    act = torch.profiler.ProfilerActivity
+    activities = [act.CPU] + ([act.CUDA] if torch.cuda.is_available()
+                              else [])
+    pt.sample_bounce = counting
+    spans.reset()
+    try:
+        with torch.profiler.profile(activities=activities):
+            render()
+        counted = spans.totals()["counts"].get("sample_kernel_rays", 0)
+    finally:
+        pt.sample_bounce = stage
+        spans.reset()
+    return handed[0], counted
+
+
 W, H, SPP, BOUNCES = 1920, 1080, 1, 3
 
 
@@ -509,6 +654,27 @@ def device_ms(fn, prefix, reps=10):
     return us / 1e3 / reps if us > 0 else None
 
 
+def launch_ms(fn, prefix, reps=10):
+    """(device ms per launch of the kernels whose names contain `prefix`,
+    the launches the profiler recorded of them) over reps calls of fn()
+    after one warm-up, for a fn that launches one such kernel a call; (None,
+    0) where it recorded none. The profiler may record fewer launches than
+    were made (after the multi-process phases, one of ten): the mean is
+    over those it recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if prefix in e.key]
+    n = sum(e.count for e in seen)
+    us = sum(e.self_device_time_total for e in seen)
+    return (us / 1e3 / n if n and us > 0 else None), n
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -555,6 +721,7 @@ def main() -> int:
                                                fused_network,
                                                lane_grid_kernel,
                                                lane_grid_train_kernel,
+                                               sample_bounce as k10,
                                                trace_cluster, trace_mxu,
                                                trace_pallas, traversal)
     from neural_renderer_tpu_torch.render import neural_frame
@@ -688,9 +855,8 @@ def main() -> int:
     # active ones in the stage's sorted compaction order.
     hits = neural_frame.trace_neural_segments(ctx, params, origins, dirs)
     pix, samp, _, _, _ = pt.primary_rays(params)
-    rays = pt.sample_bounce_directions(params, pix, samp, hits, hits.hit,
-                                       None)
-    act = torch.nonzero(hits.hit & (rays.pdf > 0)).squeeze(1)
+    rays, act = pt.sample_bounce(params, pix, samp, hits, hits.hit, None)
+    act = torch.nonzero(act).squeeze(1)
     order = traversal._ray_sort_order(rays.origin[:, act],
                                       rays.direction[:, act])
     bsel = act[order][:SLICE]
@@ -866,13 +1032,14 @@ def main() -> int:
     seeded = nbvh.init_params(cfg, torch.Generator().manual_seed(0), dev)
     seeded_ctx = NeuralContext(outer, inner, seeded)
     counters = (trace_cluster.sweep_clusters_stream,
-                lane_grid_kernel.forward_lane, trace_pallas.trace_dense)
+                lane_grid_kernel.forward_lane, trace_pallas.trace_dense,
+                k10.sample_bounce)
     for f in counters:
         f.launches = 0
     img, accum, default_mrays = run_frames(seeded_ctx, env, make_params,
                                            "seeded")
     launches = {"K1": counters[0].launches, "K2": counters[1].launches,
-                "K3": counters[2].launches}
+                "K3": counters[2].launches, "K10": counters[3].launches}
     log(f"[frame {W}x{H} seeded] launches over 3 frames {launches}")
     imgf = img.float()
     if img.shape != (H, W, 3) or not torch.isfinite(accum).all() or \
@@ -948,9 +1115,9 @@ def main() -> int:
 
     k5_cam = k5_case(korig, kdirs, traversal.FORWARD_ONLY, "knot camera")
     khits = pt.trace_primary_gt(gt_mesh, kparams, korig, kdirs)
-    krays = pt.sample_bounce_directions(kparams, kpix, ksamp, khits,
-                                        khits.hit, None)
-    kact = torch.nonzero(khits.hit & (krays.pdf > 0)).squeeze(1)
+    krays, kact = pt.sample_bounce(kparams, kpix, ksamp, khits, khits.hit,
+                                   None)
+    kact = torch.nonzero(kact).squeeze(1)
     k5_bounce = k5_case(krays.origin[:, kact], krays.direction[:, kact],
                         traversal.ANY, "knot bounce 1")
     kernels["K5"] = dict(
@@ -1761,10 +1928,15 @@ def main() -> int:
                         "studio": (studio22["psnr"], studio22["flip"])})
     log(f"[phase 26] {time.perf_counter() - t26:.1f} s")
 
+    # ---- 27. the bounce sampler (K10) --------------------------------------
+    t27 = time.perf_counter()
+    sample_bounce_phase(kernels, smi)
+    log(f"[phase 27] {time.perf_counter() - t27:.1f} s")
+
     out = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K1-MXU",
                 "K4-MXU", "K5-MXU", *(k for k in kernels
-                                      if k.startswith("K9"))):
+                                      if k.startswith("K9")), "K10"):
         k = kernels[key]
         t_ops = (k.pop("ops_seconds") if "ops_seconds" in k
                  else k.pop("ops") / k.pop("peak_ops"))
@@ -1806,6 +1978,101 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def sample_bounce_phase(kernels, smi, dev="cuda", view=(3840, 2160),
+                        batch=(W, H, 8), gt=(W, H)):
+    """Phase 27: K10 (see the module docstring). Fills kernels["K10"];
+    `view` is the sphere frame's size, `batch` the knot batch's width,
+    height and spp; `gt` the ground-truth frame's width and height."""
+    from neural_renderer_tpu_torch.ops import bounds
+    from neural_renderer_tpu_torch.ops import sample_bounce as k10
+    from neural_renderer_tpu_torch.render import pathtrace as pt
+
+    rend, pos = sampler_renderer("sphere/sphere_lane.json", *view, 1, dev)
+    label_view = f"view {view[0]}x{view[1]} bounce 1"
+    cases = {label_view: sampler_inputs(lambda: rend.render(pos), [0])[0]}
+    rend, pos = sampler_renderer("knot/knot_lane.json", *batch, dev)
+    cases[f"evaluate {batch[0]}x{batch[1]} x {batch[2]} bounce 2"] = \
+        sampler_inputs(lambda: rend.render_accumulate(
+            pos, batch[2], batch_spp=batch[2]), [1])[0]
+    del rend
+    k10.sample_bounce.launches = 0
+    calls, timed = 0, {}
+    for label, args in cases.items():
+        params, pix, samp, hits, act, inc = args
+        before = k10.sample_bounce.launches
+        got = pt.sample_bounce(*args)
+        calls += 1
+        if k10.sample_bounce.launches != before + 1:
+            raise AssertionError(f"[K10 {label}] the stage did not launch "
+                                 "K10 once")
+        e = k10_errors(got, pt.sample_bounce_twin(*args))
+        del got
+        n = e["rays"]
+        live = int((hits.hit & act).sum())
+        nbytes, ops = bounds.sample_bounce_work(n, live, inc is None)
+        case = dict(
+            errors=e, rays=n, live=live,
+            ms=time_ms(lambda: pt.sample_bounce(*args)),
+            plain_ms=time_ms(lambda: pt.sample_bounce_twin(*args), reps=2),
+            ops_seconds=ops / bounds.FP32_RATE, bytes=nbytes,
+            bound_ms=bounds.sample_bounce_seconds(n, live, inc is None)
+            * 1e3)
+        case["device_ms"], recorded = launch_ms(
+            lambda: pt.sample_bounce(*args), "nr_sample_bounce")
+        calls += 1 + 10 + 1 + 10
+        timed[label] = case
+        log(f"[K10 {label}] {n} rays, {live} live; kernel {case['ms']:.4f}"
+            f" ms a wrapper call, device {case['device_ms']!r} ms a launch "
+            f"({recorded} of 10 launches recorded), twin "
+            f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms; "
+            f"against the twin {e} ({smi})")
+        faults = k10_faults(e)
+        if faults:
+            raise AssertionError(f"[K10 {label}] {faults}")
+    if k10.sample_bounce.launches != calls:
+        raise AssertionError(f"K10 launched {k10.sample_bounce.launches} "
+                             f"times in {calls} stage calls")
+    del cases
+    # Every call of the stage in a traced render of each render cell must
+    # launch K10 on all its rays: the spans counter equals the rays handed
+    # to the stage.
+    renders = {f"view {view[0]}x{view[1]}": (
+        "sphere/sphere_lane.json", view + (1,), True, False),
+        f"evaluate {batch[0]}x{batch[1]} x {batch[2]}": (
+            "knot/knot_lane.json", batch, True, True),
+        f"gt_view {gt[0]}x{gt[1]}": (
+            "knot/knot_lane.json", gt + (1,), False, False)}
+    for label, (config, size, neural, accumulate) in renders.items():
+        rend, pos = sampler_renderer(config, *size, dev)
+        rend.set_use_neural_query(neural)
+        before = k10.sample_bounce.launches
+        handed, counted = sampler_rays_traced(
+            (lambda: rend.render_accumulate(pos, size[2],
+                                            batch_spp=size[2]))
+            if accumulate else (lambda: rend.render(pos)))
+        n = k10.sample_bounce.launches - before
+        del rend
+        log(f"[K10 traced {label}] {n} launches, rays handed to the stage "
+            f"{handed}, sample_kernel_rays {counted}")
+        if not (handed > 0 and counted == handed and n > 0):
+            raise AssertionError(f"[K10 traced {label}] sample_kernel_rays "
+                                 f"{counted} against {handed} rays handed "
+                                 f"to the stage, {n} launches")
+    first = timed[label_view]
+    kernels["K10"] = dict(
+        name="sample_bounce (the Disney bounce sampler)", route="cuda",
+        source="neural_renderer_tpu_torch/csrc/sample_bounce.cu",
+        replaces="none (the JAX package's sampler is plain jnp)",
+        max_abs_err=max(max(c["errors"]["direction"], c["errors"]["origin"])
+                        for c in timed.values()),
+        ms=first["ms"], plain_ms=first["plain_ms"],
+        ops_seconds=first["ops_seconds"], bytes=first["bytes"],
+        library_ms=None, device_ms=first["device_ms"],
+        cases={k: {f: c[f] for f in ("rays", "live", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "errors")}
+               for k, c in timed.items()})
 
 
 STUDIO_GATE = dict(psnr=23.5, flip=0.065)   # tests/test_golden.py:150-174
@@ -1946,9 +2213,8 @@ def studio_phase(kernels, smi, dev="cuda"):
     hits = neural_frame.trace_neural_segments(ctx, params, origins, dirs)
     hits = pt.select_closest_hits(params, hits, pt.trace_rays_mesh(
         extra, params, origins, dirs, fwd), origins)
-    rays = pt.sample_bounce_directions(params, pix, samp, hits, hits.hit,
-                                       None)
-    act = torch.nonzero(hits.hit & (rays.pdf > 0)).squeeze(1)
+    rays, act = pt.sample_bounce(params, pix, samp, hits, hits.hit, None)
+    act = torch.nonzero(act).squeeze(1)
     order = traversal._ray_sort_order(rays.origin[:, act],
                                       rays.direction[:, act])
     sel = act[order][:SLICE]
@@ -3153,11 +3419,12 @@ def run_frames(ctx, env, make_params, label, frames=2):
 @contextlib.contextmanager
 def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal,
               network=True):
-    """Route the five kernel entry points to their PyTorch twins (on the
+    """Route the six kernel entry points to their PyTorch twins (on the
     tensors' own device) for the duration of the block; the trace twins in
     the formulation NR_TRACE_MXU selects. network=False leaves the network
     kernel in place."""
     from neural_renderer_tpu_torch.ops import trace_mxu
+    from neural_renderer_tpu_torch.render import pathtrace as pt
     mxu = trace_mxu.use_mxu(None)
 
     def lane_twin(net, inputs, active=None):
@@ -3171,7 +3438,8 @@ def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal,
     saved = (lane_grid_kernel.forward_lane,
              trace_cluster.sweep_clusters_stream, traversal.trace_dense,
              traversal.sweep_shells_dense,
-             trace_cluster.trace_clusters_stream)
+             trace_cluster.trace_clusters_stream, pt.sample_bounce)
+    pt.sample_bounce = pt.sample_bounce_twin
     if network:
         lane_grid_kernel.forward_lane = lane_twin
     traversal.sweep_shells_dense = \
@@ -3188,7 +3456,7 @@ def twin_path(lane_grid_kernel, trace_cluster, trace_pallas, traversal,
     finally:
         (lane_grid_kernel.forward_lane, trace_cluster.sweep_clusters_stream,
          traversal.trace_dense, traversal.sweep_shells_dense,
-         trace_cluster.trace_clusters_stream) = saved
+         trace_cluster.trace_clusters_stream, pt.sample_bounce) = saved
 
 
 def frame_kernel_ms(ctx, env, params, accum, lane_grid_kernel, trace_cluster,

@@ -74,6 +74,25 @@ mlp_seconds counts them against the bytes K7 moves a row: its f32 input
 row (112 x 4 = 448 B) read once and its 16 f32 outputs (64 B) written
 once.
 
+The bounce sampler (K10, csrc/sample_bounce.cu), per ray: every ray
+reads its hit and active flags and writes origin, direction, pdf and BRDF
+weight ([3, N], [3, N], [N], [3, N] f32) and its new active flag
+(SAMPLE_RAY_BYTES); a live ray (hit and active) reads besides its pixel
+and sample ids (int64), position, normal, albedo and material parameters
+([3, N] f32; SAMPLE_LIVE_BYTES) and, after the first bounce, its stored
+incoming direction (SAMPLE_INCOMING_BYTES). A live ray's operations,
+counted from the source by the rule above, with the wang hash's integer
+instructions (xor, shift, multiply, add; 9 a hash) and each
+transcendental call (cosf, sinf, tanf, logf, powf) as one: the seed and
+its hash 14, three draws 36 (12 each: hash, mask, conversion, scale),
+the lobe's pick 2, the normal's normalization and face flip 22, the
+tangent frame 38, the chosen lobe's direction 55-82 (taken as the
+cheapest, the clearcoat's 55), the half vector 13, the lobe's validity
+13, the three-lobe pdf 64, the Disney evaluation 210, the BRDF weight 10
+and the origin 7 = 484 (SAMPLE_OPS); the first bounce regenerates the
+camera ray, two more draws and the ray's 40 (SAMPLE_CAMERA_OPS). At the
+view's 4K first bounce the bytes decide the bound.
+
 CONVERSION_RATE: FP64-to-FP32 conversions, 16 per clock per SM (NVIDIA's
 arithmetic-instruction throughput table for compute capability 9.0, in
 the CUDA C++ programming documentation) x 132 SMs x 1.98 GHz. A probe on
@@ -116,6 +135,33 @@ PREFILTER_OPS = {
 }
 BF16_PREFILTER_PACKED = (14, 8, 14, 9)   # `bf16`'s, in packed bf16
 BF16_PREFILTER_FP32 = (0, 4, 1, 2)       # and at the FP32 rate
+
+
+# The bounce sampler (K10), the module docstring: bytes of every ray, of a
+# live ray besides, of its stored incoming direction; a live ray's
+# operations, and the first bounce's camera ray.
+SAMPLE_RAY_BYTES = 2 + 12 + 12 + 4 + 12 + 1
+SAMPLE_LIVE_BYTES = 8 + 8 + 4 * 12
+SAMPLE_INCOMING_BYTES = 12
+SAMPLE_OPS = 484
+SAMPLE_CAMERA_OPS = 64
+
+
+def sample_bounce_work(rays: int, live: int,
+                      first_bounce: bool) -> tuple[int, int]:
+    """(bytes, FP32 operations) of one sampler call on `rays` rays of which
+    `live` are hit and active (the module docstring)."""
+    live_bytes = SAMPLE_LIVE_BYTES + (0 if first_bounce
+                                      else SAMPLE_INCOMING_BYTES)
+    ops = SAMPLE_OPS + (SAMPLE_CAMERA_OPS if first_bounce else 0)
+    return rays * SAMPLE_RAY_BYTES + live * live_bytes, live * ops
+
+
+def sample_bounce_seconds(rays: int, live: int, first_bounce: bool) -> float:
+    """The least time of that call: the larger of its bytes at BYTES_RATE
+    and its operations at FP32_RATE."""
+    nbytes, ops = sample_bounce_work(rays, live, first_bounce)
+    return max(nbytes / BYTES_RATE, ops / FP32_RATE)
 
 
 def trace_seconds(math: str, pairs: int) -> float:

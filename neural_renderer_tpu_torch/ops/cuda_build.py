@@ -40,6 +40,7 @@ SOURCES = {
     "ablate_trace": "ablate_trace.cu",
     "ablate_sweep": "ablate_sweep.cu",
     "ablate_mxu_bf16": "ablate_mxu_bf16.cu",
+    "sample_bounce": "sample_bounce.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so the kernels round op by op

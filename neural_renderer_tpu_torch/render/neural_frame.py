@@ -159,10 +159,9 @@ def render_neural_frame(ctx: NeuralContext, env, params, accum,
         if incoming is not None and not pt.any_active(path):
             break
         with spans.span("sampleBounce"):
-            rays = pt.sample_bounce_directions(params, pixel_idx, sample_of,
-                                               cur_hits, path.active,
-                                               incoming)
-            path = pt.update_active_after_sampling(path, cur_hits, rays)
+            rays, active = pt.sample_bounce(params, pixel_idx, sample_of,
+                                            cur_hits, path.active, incoming)
+            path = path._replace(active=active)
         bounce_hits, active = _bounce_stage_compacted(
             ctx, params, additional, rays, path.active,
             compaction=bounce_compaction)

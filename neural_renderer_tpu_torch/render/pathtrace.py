@@ -2,10 +2,11 @@
 
 Port of `neural_renderer_tpu/render/pathtrace.py`: `HitState`, `PathState`,
 `BounceRays`, `sample_grid`, `primary_rays`, `init_path_state`,
-`sample_bounce_directions`, `update_active_after_sampling`,
-`integrate_bounce`, `finalize` (shared with the neural frame),
-`select_closest_hits` (the hybrid branch's merge), `guide_buffers` (the
-denoiser's guides) and the ground-truth branch: `trace_primary_gt`,
+`sample_bounce_directions` (the `sampleBounce` stage, `sample_bounce`:
+K10 on the GPU, `sample_bounce_twin` in PyTorch), `integrate_bounce`,
+`finalize` (shared with the neural frame), `select_closest_hits` (the
+hybrid branch's merge), `guide_buffers` (the denoiser's guides) and the
+ground-truth branch: `trace_primary_gt`,
 `trace_rays_mesh`, `trace_bounces_gt`, `lambert_shade`, `accum_image`,
 `render_gt_frame`, `render_gt_lambert`. Samples are flat [N = spp * pixels] with sample_idx =
 pixel + s * pixel_count, so the RNG streams match the reference; vectors
@@ -20,6 +21,7 @@ import torch
 
 from ..ops.brdf import BrdfMaterial, build_tangent_space, disney_eval, \
     disney_sample_3component
+from ..ops import sample_bounce as k10
 from ..ops import traversal
 from ..ops.camera import generate_primary_rays
 from ..ops.envlight import sample_environment, sample_environment_clamped
@@ -162,12 +164,39 @@ def _surface_material(params, albedo, material_params) -> BrdfMaterial:
                         specular=material_params[2])
 
 
+def sample_bounce(params, pixel_idx, sample_of, hits: HitState,
+                  path_active, incoming_dirs):
+    """The `sampleBounce` stage (sampleBounceDirectionsKernel): the bounce
+    rays and the paths still active, path_active & hit & (pdf > 0) (the
+    JAX package's update_active_after_sampling). CPU tensors run the twin,
+    `sample_bounce_twin`; CUDA tensors launch K10 (ops/sample_bounce.py).
+    incoming_dirs None on the first bounce."""
+    if not hits.hit.is_cuda:
+        return sample_bounce_twin(params, pixel_idx, sample_of, hits,
+                                  path_active, incoming_dirs)
+    origin, direction, pdf, weight, active = k10.sample_bounce(
+        params, pixel_idx, sample_of, hits.position, hits.normal,
+        hits.albedo, hits.material_params, hits.hit, path_active,
+        incoming_dirs)
+    return BounceRays(origin=origin, direction=direction, pdf=pdf,
+                      brdf_weight=weight, distance=hits.distance), active
+
+
 def sample_bounce_directions(params, pixel_idx, sample_of, hits: HitState,
                              path_active, incoming_dirs) -> BounceRays:
-    """sampleBounceDirectionsKernel. incoming_dirs None on the first bounce:
-    the primary ray is regenerated from the same RNG stream (2 draws before
-    u1..u3); later bounces use the stored direction and the stream's first
-    3 draws, reproducing the reference's RNG reuse."""
+    """The bounce rays of `sample_bounce`, under the JAX package's name
+    (its parity tests call both packages alike)."""
+    return sample_bounce(params, pixel_idx, sample_of, hits, path_active,
+                         incoming_dirs)[0]
+
+
+def sample_bounce_twin(params, pixel_idx, sample_of, hits: HitState,
+                       path_active, incoming_dirs):
+    """K10's twin in PyTorch, on any device: `sample_bounce`'s (rays,
+    active). incoming_dirs None on the first bounce: the primary ray is
+    regenerated from the same RNG stream (2 draws before u1..u3); later
+    bounces use the stored direction and the stream's first 3 draws,
+    reproducing the reference's RNG reuse."""
     state = init_rng(pixel_idx, params.sample_offset, sample_of)
     if incoming_dirs is None:
         px = pixel_idx % params.width
@@ -199,24 +228,20 @@ def sample_bounce_directions(params, pixel_idx, sample_of, hits: HitState,
 
     origin = hits.position + normal * (params.scene_scale * 1e-6)
     zero3 = torch.zeros_like(origin)
-    return BounceRays(
+    rays = BounceRays(
         origin=where3(valid, origin, zero3),
         direction=where3(valid, wi, zero3),
         pdf=torch.where(valid, pdf, torch.zeros_like(pdf)),
         brdf_weight=where3(valid, brdf_weight, zero3),
         distance=hits.distance)
+    # The JAX package's update_active_after_sampling.
+    return rays, path_active & hits.hit & (rays.pdf > 0.0)
 
 
 def any_active(path: PathState) -> bool:
     """Whether any path is still active: the bounce loops' host sync."""
     with spans.span("sync.bounceActive"):
         return bool(path.active.any())
-
-
-def update_active_after_sampling(path: PathState, hits: HitState,
-                                 rays: BounceRays) -> PathState:
-    """The sampler clears pathActive for pdf <= 0 / NaN samples."""
-    return path._replace(active=path.active & hits.hit & (rays.pdf > 0.0))
 
 
 def integrate_bounce(params, env, path: PathState, bounce_hits: HitState,
@@ -322,9 +347,9 @@ def render_gt_frame(mesh, env, params, accum, return_guides: bool = False,
         if incoming is not None and not any_active(path):
             break
         with spans.span("sampleBounce"):
-            rays = sample_bounce_directions(params, pixel_idx, sample_of,
-                                            cur_hits, path.active, incoming)
-            path = update_active_after_sampling(path, cur_hits, rays)
+            rays, active = sample_bounce(params, pixel_idx, sample_of,
+                                         cur_hits, path.active, incoming)
+            path = path._replace(active=active)
         with spans.span("bounceTrace"):
             bounce_hits = trace_bounces_gt(mesh, params, rays)
         with spans.span("integrateBounce"):

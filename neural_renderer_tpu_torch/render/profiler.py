@@ -133,12 +133,12 @@ def _bounce_loop(timed, t, params, env, path, hits, pixel_idx, sample_of,
     incoming = None
     cur_hits = hits
     for bounce in range(1, params.max_bounces + 1):
-        rays, ms = timed(
-            lambda p, h, a, inc: pt.sample_bounce_directions(
+        (rays, active), ms = timed(
+            lambda p, h, a, inc: pt.sample_bounce(
                 p, pixel_idx, sample_of, h, a, inc),
             params, cur_hits, path.active, incoming)
         t.ms["sampleBounce"] += ms
-        path = pt.update_active_after_sampling(path, cur_hits, rays)
+        path = path._replace(active=active)
         bh, path = stage(rays, path)
         path, ms = timed(
             lambda p, pa, b, r, bi=bounce: pt.integrate_bounce(

@@ -275,9 +275,8 @@ def main() -> int:
         return ops[:7]
 
     hits = pt.trace_primary_gt(mesh, params, orig, dirs)
-    rays = pt.sample_bounce_directions(params, pix, samp, hits, hits.hit,
-                                       None)
-    act = torch.nonzero(hits.hit & (rays.pdf > 0)).squeeze(1)
+    rays, act = pt.sample_bounce(params, pix, samp, hits, hits.hit, None)
+    act = torch.nonzero(act).squeeze(1)
     cases = {"camera": (operands(orig, dirs), traversal.FORWARD_ONLY),
              "bounce": (operands(rays.origin[:, act],
                                  rays.direction[:, act]), traversal.ANY)}
@@ -361,9 +360,9 @@ def main() -> int:
         net_cfg, device=dev)
     shits = neural_frame.trace_neural_segments(
         NeuralContext(outer, inner, net), sparams, sorig, sdirs)
-    srays = pt.sample_bounce_directions(sparams, spix, ssamp, shits,
-                                        shits.hit, None)
-    sact = torch.nonzero(shits.hit & (srays.pdf > 0)).squeeze(1)
+    srays, sact = pt.sample_bounce(sparams, spix, ssamp, shits, shits.hit,
+                                   None)
+    sact = torch.nonzero(sact).squeeze(1)
     sact = sact[traversal._ray_sort_order(srays.origin[:, sact],
                                           srays.direction[:, sact])][:SLICE]
     sweeps = {
